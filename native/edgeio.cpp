@@ -1,6 +1,6 @@
 // Native edge-list parser for pprx (SURVEY.md §2.1 "Graph converter/loader" ●).
 //
-// The reference's converter is a C++ tool; this is its TPU-build equivalent:
+// The reference's converter is a C++ tool; this is this build's equivalent:
 // an mmap + multithreaded scanner that turns whitespace-separated
 // "src dst [timestamp]" text into packed int64/double arrays, ~50-100x the
 // Python line loop. Renumbering/sorting stay in NumPy on the Python side

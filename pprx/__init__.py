@@ -1,11 +1,11 @@
-"""pprx — TPU-native dynamic Personalized PageRank retrieval engine.
+"""pprx — dynamic Personalized PageRank retrieval engine.
 
-A from-scratch JAX/XLA/Pallas/shard_map framework with the capabilities of
+A from-scratch JAX/XLA/shard_map framework with the capabilities of
 ``guowentian/dynamicppr`` (Guo, Li, Sha, Tan, "Parallel Personalized PageRank
 on Dynamic Graphs", PVLDB 10(12), 2017): forward- and reverse-push PPR with
 reserve/residual maintenance, incremental epsilon-fresh updates under batched
 sliding-window edge insertions/deletions, multi-source batched queries with a
-top-k retrieval head, and vertex-row-sharded execution across TPU pod slices.
+top-k retrieval head, and vertex-row-sharded execution across several GPUs.
 
 NOTE ON CITATIONS: the reference mount ``/root/reference`` was empty in every
 session so far (see SURVEY.md header), so docstrings cite the reference at the

@@ -3,7 +3,7 @@
 each config runs on a synthetic power-law stand-in at a scale the local
 device can hold; pass ``scale`` to grow toward the real dataset sizes
 (wiki-Vote ~100k edges, soc-LiveJournal ~69M, Twitter-2010 ~1.5B,
-Friendster ~1.8B — the last two need a pod, SURVEY.md §6).
+Friendster ~1.8B — the last two need several cards, SURVEY.md §6).
 
 Each config returns a metrics dict (wall clocks, rounds, accuracy where an
 exact oracle is tractable).
@@ -14,12 +14,6 @@ from __future__ import annotations
 import time
 
 import numpy as np
-
-
-def _sync(x):
-    from pprx.eval.sync import hard_sync
-
-    hard_sync(x)
 
 
 def _stream(graph: str | None, n: int, need: int, seed: int):
@@ -80,7 +74,7 @@ def config1_static_forward(scale: int = 1, check_exact: bool = True,
     state, stats = jax.jit(push_to_convergence, static_argnames=("cfg",))(
         state, window, cfg=cfg
     )
-    _sync(state.p)
+    jax.block_until_ready(state.p)
     out = {
         "config": 1,
         "n": n,
@@ -121,10 +115,10 @@ def config2_sliding_window(scale: int = 1, graph: str | None = None,
     drv.seed()
     for _ in drv.run(warm):
         pass
-    _sync(drv.state.r)
+    jax.block_until_ready(drv.state.r)
     t0 = time.perf_counter()
     stats = list(drv.run(steps))
-    _sync(drv.state.r)
+    jax.block_until_ready(drv.state.r)
     rep = summarize(stats, time.perf_counter() - t0, edges_per_step=2 * b)
     return {"config": 2, "n": n, "window": w, "slide": b, **rep.as_dict()}
 
@@ -134,11 +128,7 @@ def config3_reverse_dynamic(scale: int = 1, graph: str | None = None,
                             s: int = 8) -> dict:
     """Reverse-push contribution vectors maintained under the stream.
 
-    ``s`` co-batches that many reverse targets in one engine (the round-4
-    verdict item 3 lane-packing experiment: S=8 wastes 15/16 of every
-    128-lane tile, so S=128 costs nearly the same wall per slide while
-    maintaining 16x the contribution vectors — report per-target rates
-    alongside)."""
+    ``s`` co-batches that many reverse targets in one engine."""
     import jax
 
     from pprx.config import PprConfig, StreamConfig
@@ -161,10 +151,10 @@ def config3_reverse_dynamic(scale: int = 1, graph: str | None = None,
     drv.seed()
     for _ in drv.run(warm):
         pass
-    _sync(drv.state.r)
+    jax.block_until_ready(drv.state.r)
     t0 = time.perf_counter()
     stats = list(drv.run(steps))
-    _sync(drv.state.r)
+    jax.block_until_ready(drv.state.r)
     rep = summarize(stats, time.perf_counter() - t0, edges_per_step=2 * b)
     return {"config": 3, "n": n, "window": w, "slide": b, "sources": s,
             **rep.as_dict()}
@@ -197,17 +187,16 @@ def config4_retrieval(scale: int = 1, s: int = 512, k: int = 100,
     state, stats = jax.jit(push_to_convergence, static_argnames=("cfg",))(
         state, window, cfg=cfg
     )
-    _sync(state.p)
+    jax.block_until_ready(state.p)
     cold_s = time.perf_counter() - t0
 
-    # serving latency: top-k from maintained reserve (exact and approx heads)
-    def lat(exact):
-        scores, ids = topk_candidates(state.p, k=k, exact=exact)
-        _sync(ids)
+    # serving latency: top-k from maintained reserve
+    def lat():
+        jax.block_until_ready(topk_candidates(state.p, k=k))
         t0 = time.perf_counter()
         for _ in range(20):
-            scores, ids = topk_candidates(state.p, k=k, exact=exact)
-        _sync(ids)
+            scores, ids = topk_candidates(state.p, k=k)
+        jax.block_until_ready(ids)
         return (time.perf_counter() - t0) / 20 * 1e3
 
     return {
@@ -218,8 +207,7 @@ def config4_retrieval(scale: int = 1, s: int = 512, k: int = 100,
         "k": k,
         "cold_push_s": round(cold_s, 3),
         "push_rounds": int(stats.rounds),
-        "retrieval_ms_exact": round(lat(True), 3),
-        "retrieval_ms_approx": round(lat(False), 3),
+        "retrieval_ms": round(lat(), 3),
     }
 
 
@@ -237,17 +225,15 @@ def config5_sharded(
     ccap: int = 0,
     e_top: int = 0,
     fring: int = 0,
-    bf16d: bool = False,
     mode: str = "forward",
 ) -> dict:
-    """Pod-scale row-sharded slide step (runs on however many devices exist;
-    the 8-device CPU mesh in tests, real chips on a pod). Default engine is
+    """Row-sharded slide step (runs on however many devices exist: the
+    8-device CPU mesh in tests, the GPUs of a host). Default engine is
     the compact-frontier 'wl' path (bucketed a2a frontier exchange,
     SURVEY.md §3.5); 'wlp' is the memory-proportional variant, 'dense' the
     reduce-scatter baseline. Defaults are the HEADLINE shapes (same as
-    bench.py) so a mesh-1x1 run on a real chip measures the sharding tax
-    directly; pass small n/w/b/s overrides for CPU-mesh smoke runs
-    (VERDICT round-2 item 1)."""
+    bench.py) so a mesh-1x1 run on one GPU measures the sharding tax
+    directly; pass small n/w/b/s overrides for CPU-mesh smoke runs."""
     import jax
 
     from pprx.config import PprConfig, StreamConfig
@@ -269,16 +255,16 @@ def config5_sharded(
     drv = ShardedStreamDriver(
         src, dst, n, list(range(s)), cfg, StreamConfig(window=w, slide=b),
         mesh, engine=engine, ccap=ccap or None, e_top=e_top or None,
-        fring=fring or None, bf16d=bf16d,
+        fring=fring or None,
         mode=REVERSE if mode == "reverse" else FORWARD,
     )
     drv.seed()
     for _ in drv.run(3):
         pass
-    _sync(drv.p)
+    jax.block_until_ready(drv.p)
     t0 = time.perf_counter()
     stats = list(drv.run(steps))
-    _sync(drv.p)
+    jax.block_until_ready(drv.p)
     wall = time.perf_counter() - t0
     return {
         "config": 5,

@@ -1,5 +1,5 @@
 """Multi-host runtime initialization (SURVEY.md §5 "Distributed
-communication backend": jax.distributed.initialize + DCN transport).
+communication backend": jax.distributed.initialize).
 
 The reference is single-process (no NCCL/MPI); multi-host is a build-first
 component. One call per process, BEFORE any other JAX API touches the
@@ -8,14 +8,14 @@ backend:
     from pprx.dist.init import init_distributed
     init_distributed(coordinator="host0:8476", num_processes=4, process_id=i)
 
-On TPU pods the three arguments are optional — JAX auto-detects them from
-the TPU metadata server — so ``init_distributed()`` with no arguments is
-the correct pod entry point. On CPU/GPU clusters (and the 2-process CPU
-smoke test, tests/test_multiprocess.py) they are required. After
-initialization, ``jax.devices()`` is the GLOBAL device list; build the
-('rows', 'srcs') mesh over it with pprx.dist.mesh.make_row_mesh and lay
-'rows' along ICI (per-round collectives) and 'srcs' across DCN (no
-per-round traffic) — see pprx.dist.mesh.
+Inside a cluster environment that JAX detects by itself (Open MPI, Slurm,
+mpi4py, Kubernetes and Google Cloud's own launchers) the three arguments
+are optional, so ``init_distributed()`` with no arguments is enough.
+Elsewhere (and in the 2-process CPU smoke test, tests/test_multiprocess.py)
+they are required. One process can also drive all the GPUs of one host
+without any of this. After initialization, ``jax.devices()`` is the GLOBAL
+device list; build the ('rows', 'srcs') mesh over it with
+pprx.dist.mesh.make_row_mesh.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ def init_distributed(
 
     Arguments fall back to the standard env vars (JAX_COORDINATOR_ADDRESS,
     JAX_NUM_PROCESSES, JAX_PROCESS_ID) and then to JAX's cluster
-    auto-detection (TPU pods). Returns True if the runtime was initialized
+    auto-detection. Returns True if the runtime was initialized
     by this call, False if it was skipped (single-process run: no
     coordinator given anywhere and not on an auto-detectable cluster).
     Safe to call twice (second call is a no-op)."""
@@ -48,14 +48,11 @@ def init_distributed(
     if state.client is not None:  # already initialized
         return False
     if coordinator is None and num_processes is None:
-        # bare TPU-pod auto-detection only when the platform is TPU-like;
-        # plain single-process CPU/GPU runs skip initialization entirely
-        try:
-            import jax._src.clusters as clusters
+        # auto-detection only inside a cluster environment JAX recognizes;
+        # plain single-process runs skip initialization entirely
+        import jax._src.clusters as clusters
 
-            auto = any(c.is_env_present() for c in clusters.ClusterEnv._cluster_types)
-        except Exception:
-            auto = False
+        auto = any(c.is_env_present() for c in clusters.ClusterEnv._cluster_types)
         if not auto:
             return False
         jax.distributed.initialize()

@@ -8,10 +8,11 @@ The build's parallel layout is a 2-D mesh:
 - ``srcs``: the batched-query axis is data-parallel — no communication
   during push; only the retrieval head and metrics ever cross it.
 
-On a real pod slice, axes should map so 'rows' rides ICI (the per-round
-collective) and 'srcs' can span DCN (no per-round traffic). Multi-host
-runs initialize via ``jax.distributed.initialize()`` before building the
-mesh (SURVEY.md §5 "Distributed communication backend").
+The GPUs of one host reach each other all to all over NVLink, so the mesh
+follows the algorithm alone: every per-round collective runs along 'rows',
+and 'srcs' carries no per-round traffic. Multi-host runs initialize via
+``jax.distributed.initialize()`` before building the mesh (SURVEY.md §5
+"Distributed communication backend").
 """
 
 from __future__ import annotations

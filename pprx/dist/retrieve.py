@@ -1,12 +1,11 @@
 """Distributed top-k retrieval over the row-sharded reserve matrix.
 
 SURVEY.md §2.4 collectives row ("all_gather for top-k merge") / [BASELINE]
-config 4 at pod scale. The reference has no retrieval head (it reports
+config 4 across several GPUs. The reference has no retrieval head (it reports
 error/throughput only); this is the sharded counterpart of
 pprx.retrieve.topk for states living on a ('rows', 'srcs') mesh:
 
-- each 'rows' shard runs a LOCAL top-k over its n_local vertex rows
-  (``lax.top_k`` exact, or ``lax.approx_max_k`` for the TPU-binned head);
+- each 'rows' shard runs a LOCAL exact top-k over its n_local vertex rows;
 - the k (score, global-id) winners per shard ride ONE ``all_gather`` along
   'rows' — k*K rows instead of N, so the merge traffic is tiny;
 - a final top-k over the K*k gathered candidates is exact with respect to
@@ -23,16 +22,13 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
-try:  # JAX >= 0.7 exposes shard_map at top level
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from pprx.retrieve.topk import exact_topk_rows
 
 
-def make_sharded_topk(mesh: jax.sharding.Mesh, n: int, n_local: int, k: int,
-                      exact: bool = True):
+def make_sharded_topk(mesh: jax.sharding.Mesh, n: int, n_local: int, k: int):
     """Build the jitted sharded retrieval program.
 
     Returns ``f(p_global) -> (scores [S, k], ids [S, k])`` where
@@ -54,13 +50,7 @@ def make_sharded_topk(mesh: jax.sharding.Mesh, n: int, n_local: int, k: int,
         # (k_loc = n_local still captures every possible global winner)
         k_loc = min(k, n_local)
         row0 = jax.lax.axis_index("rows") * n_local
-        scores = p_local.T  # [s_loc, n_local]
-        if exact:
-            from pprx.retrieve.topk import exact_topk_rows
-
-            sc, ids = exact_topk_rows(scores, k_loc)
-        else:
-            sc, ids = jax.lax.approx_max_k(scores, k_loc)
+        sc, ids = exact_topk_rows(p_local.T, k_loc)  # [s_loc, k_loc]
         gids = ids + row0
         sc = jnp.where(gids < n, sc, -jnp.inf)
         # [s_loc, K*k_loc] candidate table — k_loc rows per shard, not N

@@ -3,7 +3,7 @@
 Reference counterparts (SURVEY.md §2.1): "Frontier compaction" (stream
 compaction into a dense work queue) and "Load-balanced expansion" (the
 paper's key GPU contribution — splitting skewed adjacency rows across
-threads). The TPU equivalents:
+threads). The static-shape equivalents:
 
 - compaction: ``jnp.nonzero(..., size=fcap)`` into a fixed-capacity padded
   frontier (static shapes under jit);
@@ -12,7 +12,7 @@ threads). The TPU equivalents:
   frontier EDGES 0..total-1 directly and maps each back to its source row
   with a scatter-of-row-starts + cumsum (a vectorized run-length decode).
   Every lane does identical work regardless of degree skew; this is the
-  TPU-native answer to warp/CTA row splitting (no threads to balance).
+  static-shape answer to warp/CTA row splitting.
 - CSR snapshot + signed COO overlay: the sliding window mutates every step,
   but sorting 2M edges per step would dominate. The sparse path expands
   over a periodically rebuilt CSR snapshot and corrects with a small signed
@@ -26,10 +26,11 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from pprx import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class CsrSnapshot:
     """Adjacency snapshot sorted by gather endpoint.
 
@@ -49,8 +50,8 @@ def build_snapshot(key: jnp.ndarray, other: jnp.ndarray, n: int) -> CsrSnapshot:
     endpoint (src for forward mode, dst for reverse); phantom entries
     (key == n) sort to the tail and land in the phantom row.
 
-    Offsets come from a bincount + cumsum, not jnp.searchsorted (which
-    lowers to a per-lane binary-search while-loop on TPU)."""
+    Offsets come from a bincount + cumsum, not jnp.searchsorted (a
+    per-lane binary search)."""
     order = jnp.argsort(key)
     snbr = other[order]
     counts = jnp.zeros(n + 1, jnp.int32).at[key].add(1)
@@ -60,7 +61,7 @@ def build_snapshot(key: jnp.ndarray, other: jnp.ndarray, n: int) -> CsrSnapshot:
     return CsrSnapshot(offsets=offsets, nbr=snbr, row_len=counts)
 
 
-@struct.dataclass
+@pytree.dataclass
 class Overlay:
     """Signed COO ring of edge changes since the last snapshot.
 
@@ -111,8 +112,7 @@ def expand(
     total = cum[-1]
     cum_prev = cum - row_len_f  # exclusive prefix: first edge lane of each row
     # Edge-lane -> frontier-row mapping via scatter + cumsum, NOT
-    # jnp.searchsorted: searchsorted lowers to a per-lane binary-search
-    # while-loop on TPU (measured as the single hottest op in the engine).
+    # jnp.searchsorted (a per-lane binary search).
     # Each row scatters +1 at its first lane; empty rows stack their +1 on
     # the next row's start, which makes the running count skip them exactly.
     j = jnp.arange(ecap, dtype=jnp.int32)

@@ -2,13 +2,13 @@
 
 Reference counterpart (SURVEY.md §2.1 "Forward/Reverse-push kernel",
 "Convergence controller"; §3.1 hot loop). The reference's GPU realization is
-frontier compaction + load-balanced expansion + atomicAdd; the TPU dense
+frontier compaction + load-balanced expansion + atomicAdd; this dense
 path instead processes the whole window per round as gather + scatter-add
 over the COO buffer with a per-(vertex, query) activity mask:
 
-- no atomics: XLA scatter-add is deterministic on TPU, and the sorted
-  segment-sum variant (pprx.engine.frontier / Pallas kernel) is used on the
-  sparse path;
+- the scatter-add is XLA's (on the GPU it adds with atomics, so the
+  summation order, and the last bits of the result, can vary from run to
+  run);
 - the whole convergence loop runs on-device inside ``lax.while_loop`` —
   the reference pays a host sync per round (SURVEY.md §3.1), we pay none;
 - signed residuals (deletions) are handled by |r| thresholds throughout

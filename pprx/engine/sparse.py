@@ -28,8 +28,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from pprx import pytree
 from pprx.config import PprConfig
 from pprx.engine.frontier import CsrSnapshot, Overlay, build_snapshot, compact_frontier, expand
 from pprx.engine.push import push_round_given_act, _active_mask
@@ -37,7 +37,7 @@ from pprx.engine.state import FORWARD, PprState, PushStats
 from pprx.graph.dynamic import WindowGraph
 
 
-@struct.dataclass
+@pytree.dataclass
 class HybridGraph:
     """COO window + CSR snapshot + signed overlay (SURVEY.md §2.1 L0)."""
 
@@ -242,8 +242,8 @@ def worklist_round(
     ``cand``: int32[wcap] DEDUPLICATED candidate rows (phantom-padded, live
     entries first), a superset of every currently-active row (the caller
     maintains this inductively: after a round, newly active rows are
-    necessarily scatter targets of that round). This is the TPU shape of the
-    reference's frontier work-queue (SURVEY.md §2.1 "Frontier compaction"):
+    necessarily scatter targets of that round). This is the static-shape form
+    of the reference's frontier work-queue (SURVEY.md §2.1 "Frontier compaction"):
     the queue lives across rounds, and each round's cost is proportional to
     the frontier, not to N.
 
@@ -304,8 +304,8 @@ def worklist_round(
     # Overlay sweep restricted to LIVE entries: only overlay edges whose
     # gather endpoint is in this round's frontier move mass, and the full
     # overlay capacity is typically >> the handful of live entries — the
-    # unrestricted [ovcap, S] gather was the dominant per-round cost
-    # (PERFORMANCE.md). 1-D mark/compact over ovcap is cheap.
+    # unrestricted [ovcap, S] gather was the dominant per-round cost.
+    # 1-D mark/compact over ovcap is cheap.
     ova = ovacap if ovacap > 0 else gat_full.shape[0]
     fmark = jnp.zeros(n + 1, jnp.int8).at[fidx].set(1).at[n].set(0)
     live = jnp.logical_and(fmark[gat_full] > 0, ov.sign != 0)
@@ -343,7 +343,7 @@ def worklist_round(
     # next candidates = scatter targets (nbr + overlay). Dedup via a 1-D
     # mark array: O(N) scalar work per round is cheap (it was the O(N*S)
     # scans the worklist exists to avoid); a sort-based dedup of
-    # ecap+overlay ids measured ~10x slower.
+    # ecap+overlay ids was slower on the previous accelerator.
     marks = jnp.zeros(n + 1, jnp.int8)
     marks = marks.at[nbr].set(1)
     marks = marks.at[sca].set(1)
@@ -388,10 +388,8 @@ def make_tiers(
     The ``min_*`` values are CUTOFFS, not clamps: a smaller tier is added
     only while every divided cap stays above its cutoff, so ladders are
     strictly monotone and small workloads collapse to a single tier.
-    (Tiering tiny buffers has nothing to win anyway, and multi-tier
-    programs at degenerate sizes — tier caps exceeding the whole graph —
-    segfault this libtpu build's compiled while/cond/switch composition;
-    see PERFORMANCE.md "tiered rounds".)"""
+    (Tiering tiny buffers has nothing to win, and only adds switch
+    branches to compile.)"""
     tiers = [(wcap, ecap, ovacap)]
     for _ in range(n_tiers - 1):
         w2, e2, o2 = tiers[0]
@@ -460,7 +458,7 @@ def push_to_convergence_worklist(
         # with an O(wcap*S) gather when these UBs overflow, to rescue rounds
         # for the worklist path) was tried and measured SLOWER: the rescued
         # rounds run near the TOP tier by construction, and a tiered scan
-        # round beats a top-tier worklist round (PERFORMANCE.md).
+        # round beats a top-tier worklist round.
         fits = jnp.logical_and(
             jnp.logical_and(cn <= wcap, fed <= ecap), liv <= ovacap
         )

@@ -1,12 +1,12 @@
 """PPR reserve/residual state as a JAX pytree.
 
 Reference counterpart (SURVEY.md §2.1 "PPR state" / L1): per-query dense
-p[]/r[] arrays. TPU design decisions:
+p[]/r[] arrays. Design decisions:
 
 - Layout is VERTEX-MAJOR, SOURCE-MINOR: ``[N+1, S]`` with S the batched
   query axis (SURVEY.md §2.4 "multi-source batching"). Each per-edge mass
-  transfer then moves a contiguous S-vector — lane-aligned VPU work and
-  ~4*S-byte DMA granules, instead of strided scalar access.
+  transfer then moves a contiguous 4*S-byte row, so gathers and scatters
+  coalesce instead of making strided scalar accesses.
 - Row N is a PHANTOM vertex: padded edges point src=dst=N, so gathers and
   scatter-adds on padding land harmlessly in a row that is forced inactive.
   This keeps every shape static under jit with no boolean edge masks on the
@@ -17,13 +17,15 @@ p[]/r[] arrays. TPU design decisions:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import jax.numpy as jnp
-from flax import struct
+
+from pprx import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class PprState:
     """Reserve/residual pair for S batched queries over N vertices.
 
@@ -34,7 +36,7 @@ class PprState:
 
     p: jnp.ndarray
     r: jnp.ndarray
-    mode: int = struct.field(pytree_node=False, default=0)
+    mode: int = pytree.static_field(default=0)
 
     @property
     def n(self) -> int:
@@ -45,34 +47,34 @@ class PprState:
         return self.p.shape[1]
 
 
-@struct.dataclass
+@pytree.dataclass
 class PushStats:
     """Device-side counters (SURVEY.md §5 tracing: rounds/pushes returned
     from jitted fns). pushes counts active (vertex, query) pairs processed;
     edge_pushes counts edge traversals weighted by active queries — the unit
     behind the pushes/s/chip metric (pprx.eval.perf).
 
-    Counters are float32: int64 silently narrows to int32 on TPU (x64 off)
-    and 2^31 overflows within one large benchmark; f32's ~1e-7 relative
-    error is irrelevant for throughput metrics."""
+    Counters are float32: with x64 off int64 narrows to int32, and 2^31
+    overflows within one large benchmark; f32's ~1e-7 relative error is
+    irrelevant for throughput metrics."""
 
     rounds: jnp.ndarray
     pushes: jnp.ndarray
     edge_pushes: jnp.ndarray
     # rounds served by the worklist path (0 for engines without one)
-    wl_rounds: jnp.ndarray = struct.field(
+    wl_rounds: jnp.ndarray = dataclasses.field(
         default_factory=lambda: jnp.zeros((), jnp.int32)
     )
     # why rounds fell back to the scan path (candidate-list overflow /
     # frontier-edge bound over ecap / live-overlay bound over ovacap) —
     # the knobs to retune when wl_rounds drops (SURVEY.md §5 observability)
-    scans_cand: jnp.ndarray = struct.field(
+    scans_cand: jnp.ndarray = dataclasses.field(
         default_factory=lambda: jnp.zeros((), jnp.int32)
     )
-    scans_fed: jnp.ndarray = struct.field(
+    scans_fed: jnp.ndarray = dataclasses.field(
         default_factory=lambda: jnp.zeros((), jnp.int32)
     )
-    scans_liv: jnp.ndarray = struct.field(
+    scans_liv: jnp.ndarray = dataclasses.field(
         default_factory=lambda: jnp.zeros((), jnp.int32)
     )
 

@@ -2,15 +2,14 @@
 
 Reference counterparts (SURVEY.md §2.1 "Forward/Reverse-push kernel",
 "Frontier compaction", "Load-balanced expansion", "Convergence controller";
-§3.2 hot loop). This is the round-2 redesign of pprx.engine.sparse driven by
-measured v5e primitive costs (PERFORMANCE.md "1-D primitive costs"):
+§3.2 hot loop). This is the redesign of pprx.engine.sparse around two cost
+facts of the earlier engine:
 
-- ``jnp.nonzero``/1-D gathers over **N-sized** arrays cost ~2.4 ms at
-  N=200k — they were the old engine's per-round floor (mark-array dedup +
-  compaction). Slot-sized (frontier-proportional) 1-D ops cost ~0.1 ms.
-- A ``lax.while_loop`` iteration costs a fixed ~0.14 ms regardless of carry
-  size (no hidden carry copies); an unsorted scatter costs ~0.29 ms +
-  ~70 ns/row.
+- ``jnp.nonzero`` and 1-D gathers over **N-sized** arrays set a per-round
+  floor (mark-array dedup + compaction), while slot-sized
+  (frontier-proportional) 1-D ops cost a small fraction of it.
+- A ``lax.while_loop`` iteration has a fixed cost regardless of carry size,
+  and an unsorted scatter pays per row on top of a fixed launch cost.
 
 Consequences baked into this engine:
 
@@ -43,24 +42,23 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from pprx import pytree
 from pprx.config import PprConfig
 from pprx.engine.push import _active_mask
-from pprx.engine.segsum import SEGSUM_TR, pad_len, segsum_add, tile_offsets
 from pprx.engine.state import FORWARD, PprState, PushStats
 from pprx.graph.dynamic import WindowGraph
 
 # Scan/dense-flush rounds skip the O(N*S) post-delivery rescan while the
 # current frontier's edge mass exceeds STATS_GUARD * the ladder top: the
-# successor round will be another scan anyway (measured frontier decay
-# ~1.45x/round at headline shapes). A misprediction costs one extra scan
-# round; the skip saves the ~3-6 ms rescan on most mid-flush rounds.
+# successor round will be another scan anyway (the frontier decays about
+# 1.45x per round at headline shapes). A misprediction costs one extra scan
+# round; the skip saves the rescan on most mid-flush rounds.
 # Shared with the sharded engine (pprx.dist.wl).
 STATS_GUARD = 2
 
 
-@struct.dataclass
+@pytree.dataclass
 class KillGraph:
     """COO window + kill-in-place CSR snapshot + fresh mini-CSR (L0).
 
@@ -88,25 +86,16 @@ class KillGraph:
     f_nbr: jnp.ndarray
     f_len: jnp.ndarray
     # delivery-sorted snapshot view (sorted by SCATTER endpoint): big scan
-    # rounds use it for a sorted residual scatter — measured 1.8x the
-    # unsorted scatter's throughput at window scale (PERFORMANCE.md round 2).
-    # d_gat/d_sca are padded to a multiple of segsum.EC_PAD (padding:
-    # phantom gather row -> zero contribution); d_sca stays sorted for the
-    # snapshot's life (kills only touch d_gat), so d_toff — the per-row-tile
-    # contiguous edge ranges consumed by the Pallas segment-sum kernel — is
-    # computed once per rebuild.
+    # rounds use it for a residual scatter with sorted indices, whose
+    # writes to one destination row are contiguous. d_sca stays sorted for
+    # the snapshot's life (kills only point d_gat at the phantom row).
     d_gat: jnp.ndarray
     d_sca: jnp.ndarray
     d_pos: jnp.ndarray
-    d_toff: jnp.ndarray
-    # delivery-sorted FRESH view (re-sorted each slide alongside the
-    # mini-CSR): the dense round's fresh delivery was an UNSORTED [fring, S]
-    # scatter — ~22 ms at fring=320k, the single largest dense-round term
-    # (PERFORMANCE.md round 3 phase table). Sorted by scatter endpoint and
-    # EC-padded, it runs through the same segment-sum kernel as the window.
+    # delivery-sorted FRESH view, re-sorted each slide alongside the
+    # mini-CSR, so the dense round's fresh delivery is a sorted scatter too.
     fd_gat: jnp.ndarray
     fd_sca: jnp.ndarray
-    fd_toff: jnp.ndarray
 
     @property
     def n(self) -> int:
@@ -118,11 +107,9 @@ def build_kill_graph(window: WindowGraph, mode: int, fring: int) -> KillGraph:
     plus a second view sorted by scatter endpoint for dense scan rounds.
 
     Both sorts carry the payload columns through ``lax.sort`` multi-operand
-    (one sort network moves key + iota + payload together): the round-2
-    argsort-then-gather form paid ~20 ms per 2M-row 1-D gather on top of
-    each 6 ms sort (PERFORMANCE.md 1-D costs — this was half the 94 ms
-    rebuild). snap_pos (slot -> snapshot rank) still comes from the double
-    argsort, measured ~3x cheaper than an O(W) scatter."""
+    (one sort moves key + iota + payload together) instead of an argsort
+    followed by window-sized 1-D gathers. snap_pos (slot -> snapshot rank)
+    comes from a double argsort rather than an O(W) unsorted scatter."""
     n = window.n
     key = window.src if mode == FORWARD else window.dst
     other = window.dst if mode == FORWARD else window.src
@@ -140,19 +127,7 @@ def build_kill_graph(window: WindowGraph, mode: int, fring: int) -> KillGraph:
         (other, iota, key), num_keys=1, is_stable=True
     )
     d_pos = jnp.argsort(order_d, stable=True).astype(jnp.int32)
-    w_pad = pad_len(cap)
-    pad = jnp.full(w_pad - cap, n, jnp.int32)
-    d_gat = jnp.concatenate([d_gat0.astype(jnp.int32), pad])
-    d_sca = jnp.concatenate([d_sca0.astype(jnp.int32), pad])
-    counts_d = jnp.zeros(n + 1, jnp.int32).at[d_sca].add(1)
-    offs_d = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(counts_d, dtype=jnp.int32)]
-    )
-    d_toff = tile_offsets(offs_d, n + 1, SEGSUM_TR)
-    f_pad = pad_len(fring)
-    fd_empty = jnp.full(f_pad, n, jnp.int32)
-    # all-phantom fresh view: every edge lands in the tile owning row n
-    offs_f0 = jnp.zeros(n + 2, jnp.int32).at[n + 1].set(f_pad)
+    fd_empty = jnp.full(fring, n, jnp.int32)
     return KillGraph(
         window=window,
         offsets=offsets,
@@ -164,122 +139,50 @@ def build_kill_graph(window: WindowGraph, mode: int, fring: int) -> KillGraph:
         f_off=jnp.zeros(n + 2, jnp.int32),
         f_nbr=jnp.full(fring, n, jnp.int32),
         f_len=jnp.zeros(n + 1, jnp.int32),
-        d_gat=d_gat,
-        d_sca=d_sca,
+        d_gat=d_gat0.astype(jnp.int32),
+        d_sca=d_sca0.astype(jnp.int32),
         d_pos=d_pos,
-        d_toff=d_toff,
         fd_gat=fd_empty,
         fd_sca=fd_empty,
-        fd_toff=tile_offsets(offs_f0, n + 1, SEGSUM_TR),
     )
 
 
 def dense_round_sorted(
-    state: PprState, kg: KillGraph, cfg: PprConfig, segsum: bool = False,
-    bf16d: bool = False,
+    state: PprState, kg: KillGraph, cfg: PprConfig
 ) -> tuple[PprState, jnp.ndarray, jnp.ndarray]:
     """Dense push round over the delivery-sorted snapshot + fresh ring.
 
-    Exact peer of pprx.engine.push.push_round (tested), restructured for
-    TPU scatter cost: contributions are produced in scatter-endpoint order
-    so the window-sized residual scatter runs with indices_are_sorted=True.
-    Killed snapshot slots have d_gat == phantom, whose moving row is zero.
-    Reverse mode factors the receiver's 1/d_out out of the sum (same trick
-    as pprx/dist/sharded.py) to keep the scatter payload gather-free.
-
-    ``segsum=True`` (static) replaces the window-sized XLA scatter with the
-    Pallas MXU segment-sum kernel (pprx/engine/segsum.py — 3.0x on v5e, and
-    closer to the f64 truth than the f32 scatter chain). In reverse mode
-    the receiver's 1/d_out is folded in per edge via the (sorted, hence
-    cheap) ``inv_deg[d_sca]`` gather instead of factored out, saving the
-    window-sized delta array.
+    Exact peer of pprx.engine.push.push_round (tested): contributions are
+    produced in scatter-endpoint order so the window-sized residual scatter
+    runs with indices_are_sorted=True. Killed snapshot slots have d_gat ==
+    phantom, whose moving row is zero. Reverse mode factors the receiver's
+    1/d_out out of the sum (same trick as pprx/dist/sharded.py) to keep the
+    scatter payload gather-free.
     """
     dtype = state.r.dtype
     alpha = jnp.asarray(cfg.alpha, dtype)
-    n = kg.n
     deg = kg.window.deg
     act = _active_mask(state, kg.window, cfg)
     mass = jnp.where(act, state.r, jnp.zeros((), dtype))
     dangling = (deg == 0)[:, None]
     p2 = state.p + jnp.where(dangling, mass, alpha * mass)
     r2 = state.r - mass
-    seg2d = kg.d_sca.reshape(-1, 128)
-    seg2d_f = kg.fd_sca.reshape(-1, 128)
-    # Mosaic needs lane-128-aligned DMA slices; for S % 128 != 0 the kernel
-    # operands are lane-padded BEFORE the edge gather (padding the small
-    # [N+1, S] arrays costs ~1 ms; the [W_pad, *] gather output is then
-    # born aligned). The physical HBM bytes are unchanged — [*, 16] f32 is
-    # already (8,128)-tile-padded to 128 lanes — so the kernel still beats
-    # the XLA scatter, which re-reads those padded bytes several times
-    # (measured at config-2 shapes: 37.6 ms scatter vs ~20 ms kernel per
-    # S=16 window scan; PERFORMANCE.md round 5).
-    lanes_pad = (-state.r.shape[1]) % 128 if segsum else 0
+    inv_deg = (1.0 / jnp.maximum(deg, 1).astype(dtype))[:, None]
     if state.mode == FORWARD:
-        inv_deg = (1.0 / jnp.maximum(deg, 1).astype(dtype))[:, None]
         moving = (1.0 - alpha) * mass * inv_deg
-        if segsum and lanes_pad:
-            s_log = moving.shape[1]
-            mb = moving.astype(jnp.bfloat16) if bf16d else moving
-            mb = jnp.pad(mb, ((0, 0), (0, lanes_pad)))
-            r2p = jnp.pad(r2, ((0, 0), (0, lanes_pad)))
-            r2p = segsum_add(r2p, mb[kg.d_gat], seg2d, kg.d_toff)
-            r2p = segsum_add(r2p, mb[kg.fd_gat], seg2d_f, kg.fd_toff)
-            r2 = r2p[:, :s_log]
-        elif segsum and bf16d:
-            # bf16 DELIVERY (opt-in): residual removal above stays exact
-            # f32 (rows must hit exact zero); only the delivered increments
-            # carry 2^-9-relative rounding. Halves the gather + kernel DMA
-            # bytes of the dense round's dominant term.
-            mb = moving.astype(jnp.bfloat16)
-            r2 = segsum_add(r2, mb[kg.d_gat], seg2d, kg.d_toff)
-            r2 = segsum_add(r2, mb[kg.fd_gat], seg2d_f, kg.fd_toff)
-        elif segsum:
-            r2 = segsum_add(r2, moving[kg.d_gat], seg2d, kg.d_toff)
-            r2 = segsum_add(r2, moving[kg.fd_gat], seg2d_f, kg.fd_toff)
-        else:
-            r2 = r2.at[kg.d_sca].add(
-                moving[kg.d_gat], indices_are_sorted=True
-            )
-            r2 = r2.at[kg.fd_sca].add(
-                moving[kg.fd_gat], indices_are_sorted=True
-            )
+        r2 = r2.at[kg.d_sca].add(moving[kg.d_gat], indices_are_sorted=True)
+        r2 = r2.at[kg.fd_sca].add(moving[kg.fd_gat], indices_are_sorted=True)
         edge_pushes = jnp.sum(act * deg[:, None], dtype=jnp.float32)
     else:
         beta = (1.0 - alpha) / alpha
         outmass = jnp.where(dangling, beta * mass, (1.0 - alpha) * mass)
-        inv_deg = (1.0 / jnp.maximum(deg, 1).astype(dtype))[:, None]
-        if segsum and lanes_pad:
-            s_log = outmass.shape[1]
-            om = outmass.astype(jnp.bfloat16) if bf16d else outmass
-            om = jnp.pad(om, ((0, 0), (0, lanes_pad)))
-            r2p = jnp.pad(r2, ((0, 0), (0, lanes_pad)))
-            contribs = (om[kg.d_gat] * inv_deg[kg.d_sca, 0][:, None].astype(
-                om.dtype
-            ))
-            r2p = segsum_add(r2p, contribs, seg2d, kg.d_toff)
-            contribs_f = (om[kg.fd_gat] * inv_deg[kg.fd_sca, 0][
-                :, None
-            ].astype(om.dtype))
-            r2p = segsum_add(r2p, contribs_f, seg2d_f, kg.fd_toff)
-            r2 = r2p[:, :s_log]
-        elif segsum:
-            om = outmass.astype(jnp.bfloat16) if bf16d else outmass
-            contribs = (om[kg.d_gat] * inv_deg[kg.d_sca, 0][:, None].astype(
-                om.dtype
-            ))
-            r2 = segsum_add(r2, contribs, seg2d, kg.d_toff)
-            contribs_f = (om[kg.fd_gat] * inv_deg[kg.fd_sca, 0][
-                :, None
-            ].astype(om.dtype))
-            r2 = segsum_add(r2, contribs_f, seg2d_f, kg.fd_toff)
-        else:
-            delta = jnp.zeros_like(r2).at[kg.d_sca].add(
-                outmass[kg.d_gat], indices_are_sorted=True
-            )
-            delta = delta.at[kg.fd_sca].add(
-                outmass[kg.fd_gat], indices_are_sorted=True
-            )
-            r2 = r2 + delta * inv_deg
+        delta = jnp.zeros_like(r2).at[kg.d_sca].add(
+            outmass[kg.d_gat], indices_are_sorted=True
+        )
+        delta = delta.at[kg.fd_sca].add(
+            outmass[kg.fd_gat], indices_are_sorted=True
+        )
+        r2 = r2 + delta * inv_deg
         edge_pushes = jnp.sum(act[kg.d_gat], dtype=jnp.float32) + jnp.sum(
             act[kg.fr_gat], dtype=jnp.float32
         )
@@ -295,34 +198,22 @@ def refresh_fresh_csr(kg: KillGraph) -> KillGraph:
     step; offsets are its cumsum; f_nbr is the ring's scatter endpoints in
     gather-sorted order (phantom padding sorts to the tail). Also rebuilds
     the delivery-sorted fresh view (fd_*) consumed by dense scan rounds."""
-    n = kg.n
     _, f_nbr = jax.lax.sort_key_val(kg.fr_gat, kg.fr_sca, is_stable=True)
     f_off = jnp.concatenate(
         [jnp.zeros(1, jnp.int32), jnp.cumsum(kg.f_len, dtype=jnp.int32)]
     )
-    fd_sca0, fd_gat0 = jax.lax.sort_key_val(kg.fr_sca, kg.fr_gat, is_stable=True)
-    f_pad = kg.fd_gat.shape[0]
-    pad = jnp.full(f_pad - fd_sca0.shape[0], n, jnp.int32)
-    fd_sca = jnp.concatenate([fd_sca0, pad])
-    fd_gat = jnp.concatenate([fd_gat0, pad])
-    counts_f = jnp.zeros(n + 1, jnp.int32).at[fd_sca].add(1)
-    offs_f = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(counts_f, dtype=jnp.int32)]
-    )
-    fd_toff = tile_offsets(offs_f, n + 1, SEGSUM_TR)
-    return kg.replace(
-        f_nbr=f_nbr, f_off=f_off, fd_sca=fd_sca, fd_gat=fd_gat, fd_toff=fd_toff
-    )
+    fd_sca, fd_gat = jax.lax.sort_key_val(kg.fr_sca, kg.fr_gat, is_stable=True)
+    return kg.replace(f_nbr=f_nbr, f_off=f_off, fd_sca=fd_sca, fd_gat=fd_gat)
 
 
 def rld_expand(
     starts: jnp.ndarray, lens: jnp.ndarray, ecap: int
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Edge-balanced run-length decode: enumerate sum(lens) edge lanes,
-    mapping lane j -> (owning row t, array position pos). The TPU-native
+    mapping lane j -> (owning row t, array position pos). The
     load-balanced expansion (SURVEY.md §2.1): every lane does identical
-    work regardless of row-degree skew; no searchsorted (binary-search
-    while-loops measured as the hottest op — PERFORMANCE.md)."""
+    work regardless of row-degree skew, with a scatter + cumsum instead of
+    a per-lane binary search."""
     w = starts.shape[0]
     cum = jnp.cumsum(lens)
     total = cum[-1]
@@ -354,17 +245,15 @@ def make_tiers2(
 
     w sizes the candidate-row buffers, e the snapshot-expansion lanes, g the
     fresh-expansion lanes. The ladder must span both regimes the stream
-    workload produces (PERFORMANCE.md round-2 tier sweep): a deep BOTTOM
-    (steady-state rounds have a few hundred live rows — a coarse bottom tier
-    makes every one of them pay 4x buffer waste) and a high TOP (the 1-3
-    post-slide rounds have frontier edge counts near 4*slide*mean_degree —
-    every tier they outgrow costs a ~35 ms dense-scan round vs ~15 ms at a
-    fitting tier).
+    workload produces: a deep BOTTOM (steady-state rounds have a few
+    hundred live rows — a coarse bottom tier makes every one of them pay 4x
+    buffer waste) and a high TOP (the 1-3 post-slide rounds have frontier
+    edge counts near 4*slide*mean_degree — every tier they outgrow falls
+    back to a window-wide dense scan round).
 
     ``min_*`` are CUTOFFS (not clamps): ladders stay strictly monotone and
-    tiny workloads collapse to one tier — multi-tier switch programs at
-    degenerate capacities segfault this libtpu build (PERFORMANCE.md
-    "tiered rounds")."""
+    tiny workloads collapse to one tier, since tiering buffers that small
+    saves nothing and only adds switch branches to compile."""
     e_top = min(e_top, cap_snap)
     g_top = max(min(fring, max(e_top // 4, 1)), 1)
     w_top = min(max(e_top // 2, min_w), n + 1)
@@ -382,9 +271,9 @@ def make_tiers2(
     return tuple(tiers)
 
 
-# big compact rounds deliver via sort + segment-sum instead of an unsorted
-# scatter (~70 ns/row): above this many total lanes the sort+sorted path
-# wins (A/B on v5e, PERFORMANCE.md round 3)
+# big compact rounds deliver via sort + sorted scatter instead of an
+# unsorted scatter above this many total lanes (tuned on the previous
+# accelerator; not yet re-measured on the GPU)
 SORT_DELIVER_MIN = 131_072
 
 
@@ -397,7 +286,6 @@ def _compact_round(
     g_cap: int,
     emit_w: int,
     rescan_emit: bool,
-    segsum: bool = False,
 ):
     """One push round over the compact candidate list ``cand`` (unique live
     rows first, phantom-padded). Caller guarantees: cand holds every active
@@ -454,44 +342,7 @@ def _compact_round(
     keys = jnp.concatenate([cand, tgt_d])
     vals = jnp.concatenate([-mass, c1, c2])
     L = keys.shape[0]
-    if segsum and L >= SORT_DELIVER_MIN:
-        # delivery-sorted big round: sort (key, lane) once, then run the
-        # same MXU segment-sum kernel as the dense scans over a per-round
-        # tile_off built from the sorted keys (masked lanes carry zero
-        # values, phantom-row deliveries are re-zeroed below)
-        lane = jax.lax.broadcasted_iota(jnp.int32, (L,), 0)
-        keys_s, order = jax.lax.sort((keys, lane), num_keys=1, is_stable=True)
-        # Mosaic needs lane-128 alignment; S % 128 != 0 pads columns before
-        # the [L, S] gather so the big arrays are born aligned (same
-        # physical HBM bytes — see dense_round_sorted)
-        s_log = vals.shape[1]
-        lanes_pad = (-s_log) % 128
-        if lanes_pad:
-            vals = jnp.pad(vals, ((0, 0), (0, lanes_pad)))
-        vals_s = vals[order]
-        lp = pad_len(L)
-        keys_p = jnp.concatenate([keys_s, jnp.full(lp - L, n, jnp.int32)])
-        vals_p = jnp.concatenate(
-            [vals_s, jnp.zeros((lp - L, vals.shape[1]), vals.dtype)]
-        )
-        counts = jnp.zeros(n + 1, jnp.int32).at[keys_s].add(
-            1, indices_are_sorted=True
-        )
-        offs = jnp.concatenate(
-            [jnp.zeros(1, jnp.int32), jnp.cumsum(counts, dtype=jnp.int32)]
-        )
-        rin = (
-            jnp.pad(state.r, ((0, 0), (0, lanes_pad))) if lanes_pad
-            else state.r
-        )
-        r2 = segsum_add(
-            rin, vals_p, keys_p.reshape(-1, 128),
-            tile_offsets(offs, n + 1, SEGSUM_TR),
-        )
-        if lanes_pad:
-            r2 = r2[:, :s_log]
-        r2 = r2.at[-1].set(0.0)
-    elif L >= SORT_DELIVER_MIN:
+    if L >= SORT_DELIVER_MIN:
         lane = jax.lax.broadcasted_iota(jnp.int32, (L,), 0)
         keys_s, order = jax.lax.sort((keys, lane), num_keys=1, is_stable=True)
         r2 = state.r.at[keys_s].add(vals[order], indices_are_sorted=True)
@@ -506,7 +357,7 @@ def _compact_round(
     if rescan_emit:
         # big rounds: a full activity rescan + N-compaction is cheaper than
         # winner-dedup over O(e_cap) targets (nonzero cost scales with its
-        # input length — PERFORMANCE.md 1-D costs)
+        # input length)
         act2 = _active_mask(state2, kg.window, cfg)
         any2 = jnp.any(act2[:n], axis=1)
         cn2 = jnp.sum(any2, dtype=jnp.int32)
@@ -538,15 +389,11 @@ def push_to_convergence_wl2(
     c0n,
     c0ok,
     tiers: tuple[tuple[int, int, int], ...],
-    segsum: bool = False,
-    bf16d: bool = False,
 ) -> tuple[PprState, PushStats]:
     """On-device convergence loop; each iteration runs at the smallest
     capacity tier whose EXACT frontier counts fit, or one dense COO round +
     exact reseed when nothing fits. ``cand0`` seeds the candidate list at
     its own (static) capacity; pass ``c0ok=False`` to start with a scan.
-    ``segsum`` (static) routes scan rounds' window-sized residual scatter
-    through the Pallas segment-sum kernel.
     """
     n = kg.n
     tiers = tuple(tiers)
@@ -597,7 +444,6 @@ def push_to_convergence_wl2(
             def br(st):
                 st2, c2, cn2, fed2, fre2, ok2, na, ew = _compact_round(
                     st, kg, cfg, cand[:w_i], e_i, g_i, emit_w2, rescan,
-                    segsum=segsum,
                 )
                 return st2, pad(c2, emit_w2), cn2, fed2, fre2, ok2, na, ew
 
@@ -619,16 +465,14 @@ def push_to_convergence_wl2(
             )
 
         def scan(st):
-            st2, na, ew = dense_round_sorted(
-                st, kg, cfg, segsum=segsum, bf16d=bf16d
-            )
+            st2, na, ew = dense_round_sorted(st, kg, cfg)
 
-            # Post-delivery rescan skip (round 5, mirrors the sharded
-            # engine): while this round's frontier edge mass sits far
-            # above the ladder top, the successor round is another scan
-            # with near-certainty (measured decay ~1.45x/round), so the
-            # O(N*S) activity mask + the N-input nonzero are wasted work
-            # (~3.3 ms/round at headline shapes). A misprediction costs
+            # Post-delivery rescan skip (mirrors the sharded engine):
+            # while this round's frontier edge mass sits far above the
+            # ladder top, the successor round is another scan with
+            # near-certainty (the frontier decays ~1.45x/round), so the
+            # O(N*S) activity mask + the N-input nonzero are wasted
+            # work. A misprediction costs
             # one extra scan round; correctness is untouched (the loop's
             # work predicate is na, and forced scans still converge).
             heavy = ew > jnp.asarray(

@@ -6,8 +6,8 @@ upper-bound proof of a program's per-device live-array footprint, used by
 the wlp memory-budget tests (tests/test_dist_wlp.py) and the wl-vs-wlp
 crossover demonstration (scripts/wlp_crossover.py). The reference has no
 counterpart (single-GPU C++/CUDA artifact; memory accounting was manual);
-on TPU the jaxpr IS the allocation plan before XLA, so the bound is
-derivable without running anything.
+the jaxpr is the allocation plan before XLA, so the bound is derivable
+without running anything.
 """
 
 from __future__ import annotations

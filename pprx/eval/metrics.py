@@ -40,9 +40,8 @@ def recall_at_k_ties(pred_ids: np.ndarray, exact_scores: np.ndarray, k: int) -> 
     slots (k minus the strictly-above count), so backfilling with tied
     vertices can never mask a missed strictly-better vertex. Equals plain
     set recall when the exact k-boundary is tie-free; on power-law PPR
-    tails (where thousands of vertices can share the k-th score — measured
-    mean ~17k at config-4 shapes, scripts/config4_recall_sweep.py) it is
-    the correct form of "any tie-equivalent answer is interchangeable"."""
+    tails (where thousands of vertices can share the k-th score at config-4
+    shapes) it is the correct form of "any tie-equivalent answer is interchangeable"."""
     pred = np.asarray(pred_ids)[:k]
     exact_scores = np.asarray(exact_scores)
     kth = np.sort(exact_scores)[-k]

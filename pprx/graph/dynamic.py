@@ -1,8 +1,8 @@
 """Device-resident dynamic graph: fixed-capacity COO window.
 
 Reference counterpart (SURVEY.md §2.1 "Dynamic graph store" / L0): the
-reference mutates a CSR with the sliding window. The TPU-first design
-instead exploits the FIFO structure of the window: the live edge set is a
+reference mutates a CSR with the sliding window. This design instead
+exploits the FIFO structure of the window: the live edge set is a
 contiguous slice of the timestamped stream, so the device store is a
 CIRCULAR COO BUFFER of static capacity — a slide step overwrites exactly
 the slots whose edges are expiring. No in-place CSR surgery, no dynamic
@@ -14,18 +14,19 @@ shapes, and buffer donation makes the step allocation-free:
 - ``deg: int32[N+1]`` — out-degrees maintained incrementally (exact).
 
 CSR/CSC views for the sparse frontier path are derived by (re)sorting this
-buffer (pprx.engine.frontier), amortized over many slides — sorting is fast
-and deterministic on TPU whereas scattered CSR mutation is not.
+buffer (pprx.engine.frontier), amortized over many slides — a sort is one
+bulk pass, whereas scattered CSR mutation is not.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from pprx import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class WindowGraph:
     """COO edge window on device. Static capacity; phantom-padded."""
 

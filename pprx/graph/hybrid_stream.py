@@ -139,16 +139,16 @@ class HybridStreamDriver:
         # the post-slide frontier's snapshot edges scale with the batch times
         # average degree; 8x slide measured best on power-law streams (bigger
         # caps make every round pay for the worst round, smaller ones force
-        # scan fallbacks) — see PERFORMANCE.md
+        # scan fallbacks)
         self.ecap = ecap if ecap is not None else min(max(8 * scfg.slide, 65_536), w)
         # scan rounds get a deeper top tier: a big-sparse round at 4x ecap
         # still beats the O(W*S) dense fallback it replaces, but past ~W/2
-        # the adaptive "worth" test correctly prefers dense (PERFORMANCE.md)
+        # the adaptive "worth" test correctly prefers dense
         self.scan_ecap = min(4 * self.ecap, max(w // 2, self.ecap))
         self.worklist = worklist
         # candidate-list capacity: counts ROWS (frontier vertices), which
         # track ~4b after a slide — decoupled from the EDGE capacity ecap
-        # (coupling them once blew worklist gathers up 4x, PERFORMANCE.md).
+        # (coupling them once blew worklist gathers up 4x).
         # Overflow just falls back to one scan round.
         self.wcap = max(4 * scfg.slide, 32_768)
         # live overlay entries per worklist round (overflow -> scan round)

@@ -30,21 +30,21 @@ def load_edge_list(
     order.
 
     ``use_native=None`` auto-selects the C++ parser (native/edgeio.cpp) when
-    its library is built; True forces it; False forces pure Python.
+    its library can be built; True forces it; False forces pure Python.
 
     Returns ``(src, dst, n)`` with int32 arrays in stream order.
     """
     if use_native is not False:
         from pprx.graph import native_io
 
-        if native_io.AVAILABLE:
+        if native_io.available():
             src, dst, ts, has_ts = native_io.parse_edgelist_raw(path)
             if has_ts and not _nondecreasing(ts):
                 order = np.argsort(ts, kind="stable")
                 src, dst = src[order], dst[order]
             return renumber(src, dst)
         if use_native:
-            raise RuntimeError("native edge IO requested but not built (make -C native)")
+            raise RuntimeError("native edge IO requested but unavailable (make -C native)")
     srcs: list[int] = []
     dsts: list[int] = []
     ts: list[float] = []
@@ -81,8 +81,8 @@ def load_edge_list(
 
 def _nondecreasing(ts: np.ndarray) -> bool:
     """Timestamped real streams usually arrive already time-ordered; a
-    single O(M) check skips a 100M-element stable argsort (measured ~40 s
-    of the 100M-edge load — BASELINE.md round 4)."""
+    single O(M) check skips a 100M-element stable argsort (which dominated
+    a 100M-edge load)."""
     return ts.size < 2 or bool(np.all(ts[1:] >= ts[:-1]))
 
 
@@ -93,7 +93,7 @@ def renumber(src: np.ndarray, dst: np.ndarray) -> tuple[np.ndarray, np.ndarray, 
     When the raw id space is not much larger than the edge count, the
     first-seen map is built with O(M) scatters instead of sorting the 2M-id
     interleave (np.unique sorts; at 100M edges that sort dominated the
-    whole load — BASELINE.md round 4): a reverse-order fancy assignment
+    whole load): a reverse-order fancy assignment
     leaves each id's FIRST position as the final write, and ranking the
     (small) present-id set by that position gives the same mapping as the
     unique-based path (property-tested equal in tests/test_native_io.py).

@@ -1,57 +1,84 @@
 """ctypes bridge to the native C++ edge-list parser (native/edgeio.cpp).
 
-Loads ``libpprx_edgeio.so`` if it has been built (``make -C native``);
-otherwise ``AVAILABLE`` is False and callers fall back to the pure-Python
-parser in pprx.graph.io (same output contract, property-tested against each
-other in tests/test_native_io.py).
+The library ``native/libpprx_edgeio.so`` is built from source with
+``make -C native`` the first time it is needed (it is not kept in git).
+If it cannot be built or loaded, ``available()`` is False and callers fall
+back to the pure-Python parser in pprx.graph.io (same output contract,
+property-tested against each other in tests/test_native_io.py). Setting
+PPRX_NO_NATIVE=1 forces the fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 
 import numpy as np
 
-_LIB_PATH = os.path.join(
+_NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "native",
-    "libpprx_edgeio.so",
 )
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libpprx_edgeio.so")
 
+# the loaded library, once _load() has run (None if unavailable)
 _lib = None
-if os.path.exists(_LIB_PATH) and os.environ.get("PPRX_NO_NATIVE", "0") != "1":
-    try:
-        _lib = ctypes.CDLL(_LIB_PATH)
-        _lib.pprx_parse_edgelist.restype = ctypes.c_int
-        _lib.pprx_parse_edgelist.argtypes = [
-            ctypes.c_char_p,
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_double)),
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int),
-        ]
-        _lib.pprx_free.restype = None
-        _lib.pprx_free.argtypes = [ctypes.c_void_p]
-    except OSError:
-        _lib = None
+_loaded = False
 
-AVAILABLE = _lib is not None
+
+def _load():
+    global _lib, _loaded
+    if _loaded:
+        return _lib
+    _loaded = True
+    if os.environ.get("PPRX_NO_NATIVE", "0") == "1":
+        return None
+    if not os.path.exists(_LIB_PATH):
+        try:
+            subprocess.run(
+                ["make", "-C", _NATIVE_DIR], check=True, capture_output=True,
+                timeout=600,
+            )
+        except (OSError, subprocess.SubprocessError):
+            return None
+    try:
+        lib = ctypes.CDLL(_LIB_PATH)
+    except OSError:
+        return None
+    lib.pprx_parse_edgelist.restype = ctypes.c_int
+    lib.pprx_parse_edgelist.argtypes = [
+        ctypes.c_char_p,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_double)),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.pprx_free.restype = None
+    lib.pprx_free.argtypes = [ctypes.c_void_p]
+    _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    """Whether the native parser can be used (builds it on first call)."""
+    return _load() is not None
 
 
 def parse_edgelist_raw(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray, bool]:
     """Parse via the native library. Returns (src, dst, ts, has_ts) in FILE
     ORDER, un-renumbered. Raises RuntimeError if unavailable or on IO error.
     """
-    if _lib is None:
-        raise RuntimeError("native edge IO library not built (make -C native)")
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native edge IO library not available (make -C native)")
     src_p = ctypes.POINTER(ctypes.c_int64)()
     dst_p = ctypes.POINTER(ctypes.c_int64)()
     ts_p = ctypes.POINTER(ctypes.c_double)()
     count = ctypes.c_int64()
     has_ts = ctypes.c_int()
-    rc = _lib.pprx_parse_edgelist(
+    rc = lib.pprx_parse_edgelist(
         path.encode(), ctypes.byref(src_p), ctypes.byref(dst_p),
         ctypes.byref(ts_p), ctypes.byref(count), ctypes.byref(has_ts),
     )
@@ -69,7 +96,7 @@ def parse_edgelist_raw(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray, b
         ts = np.ctypeslib.as_array(ts_p, shape=(n,)).copy()
     finally:
         if n > 0:
-            _lib.pprx_free(src_p)
-            _lib.pprx_free(dst_p)
-            _lib.pprx_free(ts_p)
+            lib.pprx_free(src_p)
+            lib.pprx_free(dst_p)
+            lib.pprx_free(ts_p)
     return src, dst, ts, bool(has_ts.value)

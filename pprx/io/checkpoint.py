@@ -69,8 +69,6 @@ def save_checkpoint(path: str, drv) -> None:
             "cap0": drv.cap0,
             "fcnt": drv.fcnt,
             "queries": [int(q) for q in drv._queries],
-            "segsum": drv.segsum,
-            "bf16d": drv.bf16d,
         }
         kg = drv.graph
         extra = {
@@ -78,8 +76,7 @@ def save_checkpoint(path: str, drv) -> None:
             for f in (
                 "offsets", "nbr", "row_len", "snap_pos",
                 "fr_gat", "fr_sca", "f_off", "f_nbr", "f_len",
-                "d_gat", "d_sca", "d_pos", "d_toff",
-                "fd_gat", "fd_sca", "fd_toff",
+                "d_gat", "d_sca", "d_pos", "fd_gat", "fd_sca",
             )
         }
     np.savez_compressed(
@@ -121,38 +118,34 @@ def load_checkpoint(path: str, stream_src: np.ndarray, stream_dst: np.ndarray) -
         drv.fcnt = tune["fcnt"]
         drv._queries = list(tune["queries"])
         drv.tiers = tuple(tuple(t) for t in tune["tiers"])
-        drv.segsum = bool(tune.get("segsum", False))
-        drv.bf16d = bool(tune.get("bf16d", False))
         kg_fields = {
             f: jnp.asarray(z[f"kg_{f}"])
             for f in (
                 "offsets", "nbr", "row_len", "snap_pos",
                 "fr_gat", "fr_sca", "f_off", "f_nbr", "f_len",
-                "d_gat", "d_sca", "d_pos", "d_toff",
+                "d_gat", "d_sca", "d_pos",
             )
         }
+        # files from before the delivery views were unpadded carry a
+        # phantom tail past the window capacity (and tile-offset arrays,
+        # which are ignored): trim it
+        cap = int(z["src"].shape[0])
+        kg_fields["d_gat"] = kg_fields["d_gat"][:cap]
+        kg_fields["d_sca"] = kg_fields["d_sca"][:cap]
         if "kg_fd_gat" in z:
-            for f in ("fd_gat", "fd_sca", "fd_toff"):
-                kg_fields[f] = jnp.asarray(z[f"kg_{f}"])
+            for f in ("fd_gat", "fd_sca"):
+                kg_fields[f] = jnp.asarray(z[f"kg_{f}"])[: drv.fring]
             drv.graph = KillGraph(window=window, **kg_fields)
         else:
             # checkpoint written before the delivery-sorted fresh view
             # existed: the fd arrays are derived state — reconstruct them
             # from the persisted ring via refresh_fresh_csr
-            from pprx.engine.segsum import SEGSUM_TR, pad_len
-
-            n_ck = meta["n"]
-            f_pad = pad_len(drv.fring)
-            ntiles = (n_ck + 1 + SEGSUM_TR - 1) // SEGSUM_TR
-            kg_fields.update(
-                fd_gat=jnp.full(f_pad, n_ck, jnp.int32),
-                fd_sca=jnp.full(f_pad, n_ck, jnp.int32),
-                fd_toff=jnp.zeros(ntiles + 1, jnp.int32),
-            )
             from pprx.engine.wl2 import refresh_fresh_csr
 
+            empty = jnp.full(drv.fring, meta["n"], jnp.int32)
             drv.graph = refresh_fresh_csr(
-                KillGraph(window=window, **kg_fields)
+                KillGraph(window=window, fd_gat=empty, fd_sca=empty,
+                          **kg_fields)
             )
         drv.hsrc = np.asarray(z["src"], dtype=np.int32)
         drv.hdst = np.asarray(z["dst"], dtype=np.int32)
@@ -236,10 +229,6 @@ def save_sharded_checkpoint(path: str, drv) -> None:
             "fring": drv.eng.fring,
             "e_top": drv.eng.e_top,
             "n_tiers": drv.eng.n_tiers,
-            "bf16d": drv.eng.bf16d,
-            # the resolved segsum flag (advisor round-3): bit-identical
-            # resume must not re-derive it from backend/shape heuristics
-            "segsum": drv.eng.segsum,
             "tiers": [list(t) for t in drv.eng.tiers],
             "ccaps": [int(c) for c in drv.eng.ccaps],
             "since_rb": drv._since_rb,
@@ -313,8 +302,6 @@ def load_sharded_checkpoint(
             e_top=tune["e_top"],
             n_tiers=tune["n_tiers"],
             proportional=(meta["engine"] == "wlp"),
-            bf16d=bool(tune.get("bf16d", False)),
-            segsum=tune.get("segsum"),
         )
         got = [list(t) for t in drv.eng.tiers]
         if got != tune["tiers"]:
@@ -379,10 +366,20 @@ def load_sharded_checkpoint(
                 f"(missing fields {missing}); re-create it with this "
                 "version (the delivery views changed in round 4)"
             )
-        drv.snap = {
-            k: jax.device_put(jnp.asarray(z[f"snap_{k}"]), row_sh)
-            for k in _wl_snap_keys()
+        # files from before the delivery views were unpadded carry a
+        # phantom tail past each shard's view length (and tile-offset
+        # arrays, which are ignored): trim it per shard
+        view_len = {
+            "d_gat": eng.slot_stride, "d_sca": eng.slot_stride,
+            "fd_gat": eng.fring + 1, "fd_sca": eng.fring + 1,
         }
+        snap = {}
+        for k in _wl_snap_keys():
+            a = np.asarray(z[f"snap_{k}"])
+            if k in view_len:
+                a = a.reshape(eng.n_rows, -1)[:, : view_len[k]].reshape(-1)
+            snap[k] = jax.device_put(jnp.asarray(a), row_sh)
+        drv.snap = snap
         drv._fcnt_host = np.asarray(z["fcnt_host"], np.int64)
         drv._since_rb = meta["wl_tuning"]["since_rb"]
     # the forward wl slide's device slot ring is fully determined by the

@@ -64,3 +64,51 @@ def exact_ppr(
             return nxt
         pi = nxt
     return pi
+
+
+def exact_ppr_many(
+    src: np.ndarray,
+    dst: np.ndarray,
+    n: int,
+    sources,
+    alpha: float,
+    tol: float = 1e-12,
+    max_iter: int = 100_000,
+) -> np.ndarray:
+    """exact_ppr for several sources at once: [len(sources), n], iterated
+    until every row's L1 change is below ``tol``."""
+    P = transition_matrix(src, dst, n)
+    e = np.zeros((len(sources), n))
+    e[np.arange(len(sources)), np.asarray(sources)] = 1.0
+    pi = e.copy()
+    for _ in range(max_iter):
+        nxt = alpha * e + (1.0 - alpha) * (P.T @ pi.T).T
+        if np.abs(nxt - pi).sum(axis=1).max() < tol:
+            return nxt
+        pi = nxt
+    return pi
+
+
+def exact_contribution(
+    src: np.ndarray,
+    dst: np.ndarray,
+    n: int,
+    target: int,
+    alpha: float,
+    tol: float = 1e-12,
+    max_iter: int = 100_000,
+) -> np.ndarray:
+    """Column ``target`` of M — pi_v(target) for every v, the vector that
+    reverse push maintains — by power iteration x <- alpha e_t +
+    (1 - alpha) P x to L1 tolerance ``tol``. For graphs too large for
+    exact_ppr_matrix."""
+    P = transition_matrix(src, dst, n)
+    e_t = np.zeros(n)
+    e_t[target] = 1.0
+    x = alpha * e_t
+    for _ in range(max_iter):
+        nxt = alpha * e_t + (1.0 - alpha) * (P @ x)
+        if np.abs(nxt - x).sum() < tol:
+            return nxt
+        x = nxt
+    return x

@@ -3,7 +3,7 @@
 Reference counterpart (SURVEY.md §2.1 "CPU parallel baseline" + §2.2/§2.3):
 the reference's CPU push implementation plays the role of validation
 baseline; here a deliberately simple sequential implementation is the oracle
-every vectorized TPU path is tested against, and the dynamic-correction
+every vectorized device path is tested against, and the dynamic-correction
 rules are locked to the invariant by property tests (tests/test_invariant.py).
 
 Invariants maintained at ALL times (SURVEY.md §2.2, with

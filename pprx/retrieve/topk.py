@@ -1,13 +1,10 @@
 """Top-k-by-PPR-score retrieval head.
 
 Build-only component (SURVEY.md L6 / [BASELINE] config 4): the reference
-reports error/throughput, not top-k serving; the TPU build adds a batched
+reports error/throughput, not top-k serving; this build adds a batched
 candidate-generation head over the multi-source reserve matrix.
 
 ``p`` is vertex-major [N+1, S]; top-k runs per query over the vertex axis.
-``exact=False`` uses ``lax.approx_max_k`` — TPU-native binned top-k with
-~10x throughput at recall ~0.95+ for k=100, N large (the right default for
-candidate generation, where downstream ranking absorbs tiny recall loss).
 """
 
 from __future__ import annotations
@@ -19,80 +16,37 @@ import jax.numpy as jnp
 
 from pprx.engine.state import PprState
 
-# Compile-time cliff guard (PERFORMANCE.md "top_k compile cliff"): XLA TPU
-# lowers a batched lax.top_k over a large trailing axis to a monolithic
-# variadic sort whose compile time grows super-linearly with the axis
-# length — the single-stage [512, 500k] head exceeded 19 MINUTES of
-# compile. Any direct batched top_k in this module must stay under this
-# many lanes; bigger shapes must take the chunked two-stage reduction
-# (each chunk's sort is fixed-size, so it compiles in seconds at any N).
-# 1-D multi-operand lax.sort (the engines' 2M-lane delivery sorts) does
-# NOT trip this cliff — the blow-up is specific to the batched comparator
-# network.
-TOPK_LANES_MAX = 65_536
 
-
-@functools.partial(
-    jax.jit, static_argnames=("k", "exact", "chunk", "recall_target")
-)
+@functools.partial(jax.jit, static_argnames=("k", "chunk"))
 def topk_candidates(
-    p: jnp.ndarray, k: int, exact: bool = True, chunk: int = 4096,
-    recall_target: float = 0.97,
+    p: jnp.ndarray, k: int, chunk: int = 4096
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Per-query top-k vertices by reserve score.
+    """Per-query exact top-k vertices by reserve score.
 
     p: [N+1, S] reserve matrix (phantom row excluded from candidates).
     Returns (scores [S, k], ids [S, k]), scores descending per query.
-
-    The exact path is two-stage: per-chunk ``lax.top_k`` (each global top-k
-    element is top-k within its own chunk, so the union of per-chunk winners
-    provably contains the answer) followed by a final top-k over the m*k
-    survivors — the single-stage [S, N] variadic sort is pathological on
-    this toolchain (round-3 re-measure: its compile alone exceeded 19 min
-    at N=500k/S=512). Round-3 measured latency at config-4 shapes: 111 ms
-    at chunk=2048 (best of the 2k..32k sweep; smaller chunks win — the
-    stage-1 sort length dominates).
-
-    The <10 ms serving head is the approx path; ``recall_target`` sizes
-    ``lax.approx_max_k``'s binned reduction. Round-4 sweep at config-4
-    shapes (N=500k/S=512/k=100, scripts/config4_recall_sweep.py): rt=0.97
-    serves at 9.3 ms with tie-aware recall@100 = 0.990 vs the exact head
-    (rt=0.95: 9.0 ms / 0.981; rt=0.98: 10.1 ms / 0.996). Plain
-    set-intersection recall saturates at ~0.91 for ANY effort because a
-    mean of ~17k vertices tie at the k-th score on power-law tails —
-    tie-equivalent answers are interchangeable (pprx.eval.metrics
-    ``recall_at_k_ties`` is the rigorous form; exact is the eval head).
     """
-    scores_t = p[:-1].T  # [S, N]
-    if not exact:
-        return jax.lax.approx_max_k(scores_t, k, recall_target=recall_target)
-    return exact_topk_rows(scores_t, k, chunk)
+    return exact_topk_rows(p[:-1].T, k, chunk)
 
 
 def exact_topk_rows(
     scores_t: jnp.ndarray, k: int, chunk: int = 4096
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Exact per-row top-k of [S, N] via the chunked two-stage reduction
-    (trace-time helper for jitted callers, incl. the sharded local head)."""
+    """Exact per-row top-k of [S, N] (trace-time helper for jitted callers,
+    incl. the sharded local head).
+
+    Two stages: per-chunk ``lax.top_k`` (each global top-k element is top-k
+    within its own chunk, so the union of per-chunk winners provably
+    contains the answer), then a final top-k over the m*k survivors."""
     s, n = scores_t.shape
     if n <= 2 * chunk or k > chunk:
-        assert n <= TOPK_LANES_MAX, (
-            f"direct batched top_k over {n} lanes would hit the compile "
-            f"cliff (> TOPK_LANES_MAX={TOPK_LANES_MAX}); use a chunk size "
-            f">= k so the two-stage reduction applies"
-        )
         return jax.lax.top_k(scores_t, k)
     m = -(-n // chunk)
     pad = m * chunk - n
     xs = jnp.pad(scores_t, ((0, 0), (0, pad)), constant_values=-jnp.inf)
     sc, ix = jax.lax.top_k(xs.reshape(s, m, chunk), k)  # [S, m, k]
     ids = ix + (jnp.arange(m, dtype=ix.dtype) * chunk)[None, :, None]
-    if m * k > TOPK_LANES_MAX:
-        # very large N: the survivor row itself would hit the compile
-        # cliff — recurse (each level divides the lane count by ~chunk/k)
-        sc2, ij = exact_topk_rows(sc.reshape(s, m * k), k, chunk)
-    else:
-        sc2, ij = jax.lax.top_k(sc.reshape(s, m * k), k)
+    sc2, ij = jax.lax.top_k(sc.reshape(s, m * k), k)
     ids2 = jnp.take_along_axis(ids.reshape(s, m * k), ij, axis=1)
     # pad positions (score -inf) can surface ids >= n when a row has fewer
     # than k finite entries; clamp so the helper is safe for arbitrary input
@@ -100,7 +54,7 @@ def exact_topk_rows(
     return sc2, ids2
 
 
-def retrieve(state: PprState, k: int = 100, exact: bool = True):
+def retrieve(state: PprState, k: int = 100):
     """Candidate generation from a converged push state ([BASELINE] config 4:
     512 sources/launch, k=100)."""
-    return topk_candidates(state.p, k, exact)
+    return topk_candidates(state.p, k)

@@ -1,15 +1,11 @@
 """Interleaved same-process A/B of the headline stream bench (bench.py
-shapes: N=200k, W=2M, b=160k, S=128) across the two suspects for the
-746k-vs-606k discrepancy (VERDICT round 2, weak item 1):
+shapes: N=200k, W=2M, b=160k, S=128) across FastStreamDriver settings —
+by default rebuild_every 2 (what bench.py derives at b=160k) vs 8 (the
+driver default).
 
-- segsum on/off (the Pallas MXU segment-sum in dense scan rounds)
-- rebuild_every 2 vs 8 (bench.py derives 2 at b=160k; the round-2 sweeps
-  that recorded 746k ran the driver default of 8)
-
-Protocol per PERFORMANCE.md measurement traps: one process, every variant
-run twice interleaved, first pass discarded (compile/cache warm), timing
-bracketed by hard_sync. Drivers are rebuilt fresh per run and dropped
-after (HBM hygiene).
+Protocol: one process, every variant run twice interleaved, first pass
+discarded (compile/cache warm), timing ended by block_until_ready. Drivers
+are rebuilt fresh per run and dropped after, to free device memory.
 """
 
 import os
@@ -22,11 +18,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", os.path.expanduser("~/.cache/pprx-xla"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from pprx.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from pprx.config import PprConfig, StreamConfig
-from pprx.eval.sync import hard_sync
 from pprx.graph.fast_stream import FastStreamDriver
 from pprx.graph.io import synthetic_powerlaw_stream
 
@@ -39,10 +35,8 @@ STEPS = int(os.environ.get("AB_STEPS", 8))
 import json
 
 _default_variants = [
-    ("segsum=1 re=2", dict(segsum=True, rebuild_every=2)),
-    ("segsum=0 re=2", dict(segsum=False, rebuild_every=2)),
-    ("segsum=1 re=8", dict(segsum=True, rebuild_every=8)),
-    ("segsum=0 re=8", dict(segsum=False, rebuild_every=8)),
+    ("re=2", dict(rebuild_every=2)),
+    ("re=8", dict(rebuild_every=8)),
 ]
 # override via AB_VARIANTS: JSON list of kwarg dicts for FastStreamDriver
 _env = os.environ.get("AB_VARIANTS")
@@ -69,10 +63,10 @@ def run_once(kw):
     warm = kw.get("rebuild_every", 8) + 2
     for _ in drv.run(warm):
         pass
-    hard_sync(drv.state.r)
+    jax.block_until_ready(drv.state.r)
     t0 = time.perf_counter()
     stats = list(drv.run(STEPS))
-    hard_sync(drv.state.r)
+    jax.block_until_ready(drv.state.r)
     wall = time.perf_counter() - t0
     ups = 2 * B * len(stats) / wall
     rounds = sum(int(st.rounds) for st in stats)

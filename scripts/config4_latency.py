@@ -1,7 +1,6 @@
-"""Config-4 retrieval-head latency on the real chip (VERDICT round-2
-item 6): exact two-stage top-k (chunk-size sweep — unswept on TPU until
-now) and the approx_max_k head, plus approx recall vs exact. Shapes:
-N=500k, E=5M, S=512 sources, k=100."""
+"""Config-4 retrieval-head latency on the GPU: the exact two-stage top-k
+across chunk sizes, and a direct single-stage lax.top_k. Shapes: N=500k,
+E=5M, S=512 sources, k=100."""
 
 import os
 import sys
@@ -13,13 +12,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", os.path.expanduser("~/.cache/pprx-xla"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from pprx.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from pprx.config import PprConfig
 from pprx.engine.push import push_to_convergence
 from pprx.engine.state import FORWARD, init_state
-from pprx.eval.sync import hard_sync
 from pprx.graph.dynamic import WindowGraph
 from pprx.graph.io import synthetic_powerlaw_stream
 from pprx.retrieve.topk import topk_candidates
@@ -35,34 +34,26 @@ t0 = time.perf_counter()
 state, stats = jax.jit(push_to_convergence, static_argnames=("cfg",))(
     state, graph, cfg=cfg
 )
-hard_sync(state.p)
+jax.block_until_ready(state.p)
 print(f"cold push: {time.perf_counter()-t0:.1f}s, {int(stats.rounds)} rounds", flush=True)
 
 
 def lat(reps=20, **kw):
     scores, ids = topk_candidates(state.p, k=k, **kw)
-    hard_sync(ids)
+    jax.block_until_ready(ids)
     best = None
     for _ in range(3):
         t0 = time.perf_counter()
         for _ in range(reps):
             scores, ids = topk_candidates(state.p, k=k, **kw)
-        hard_sync(ids)
+        jax.block_until_ready(ids)
         ms = (time.perf_counter() - t0) / reps * 1e3
         best = ms if best is None else min(best, ms)
     return best, ids
 
 
-ms_ap, ids_ap = lat(exact=False)
-print(f"approx_max_k: {ms_ap:.2f} ms", flush=True)
+ms, _ = lat(chunk=1 << 20)  # chunk >= N/2: one direct lax.top_k
+print(f"direct lax.top_k: {ms:.2f} ms", flush=True)
 for chunk in (2048, 4096, 8192, 16384, 32768):
-    ms, ids_ex = lat(exact=True, chunk=chunk)
+    ms, _ = lat(chunk=chunk)
     print(f"exact two-stage chunk={chunk}: {ms:.2f} ms", flush=True)
-
-# approx recall vs exact at k=100
-ex = np.asarray(ids_ex)
-ap = np.asarray(ids_ap)
-rec = np.mean([
-    len(set(ex[i].tolist()) & set(ap[i].tolist())) / k for i in range(s)
-])
-print(f"approx recall@100 vs exact: {rec:.4f}", flush=True)

@@ -16,12 +16,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", os.path.expanduser("~/.cache/pprx-xla"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from pprx.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from pprx.config import PprConfig, StreamConfig
 from pprx.eval.metrics import precision_at_k
-from pprx.eval.sync import hard_sync
 from pprx.graph.fast_stream import FastStreamDriver
 from pprx.graph.io import synthetic_powerlaw_stream
 from pprx.ref.exact import exact_ppr
@@ -44,7 +44,7 @@ drv = FastStreamDriver(src, dst, N, queries, cfg, scfg, mode=0, rebuild_every=re
 drv.seed()
 for _ in drv.run(warm + STEPS):
     pass
-hard_sync(drv.state.r)
+jax.block_until_ready(drv.state.r)
 
 w = scfg.window
 wsrc = drv.hsrc
@@ -72,7 +72,7 @@ print(f"eps=1e-6 (maintained): precision mean={m:.4f} min={lo:.4f}", flush=True)
 for eps_r in (5e-7, 2e-7, 1e-7, 5e-8, 2e-8):
     t0 = time.perf_counter()
     stats = drv.refine(eps_r)
-    hard_sync(drv.state.r)
+    jax.block_until_ready(drv.state.r)
     dt = (time.perf_counter() - t0) * 1e3
     m, lo = prec()
     print(

@@ -1,10 +1,12 @@
 """Profile steady-state slides of the headline bench config and aggregate
-device-time by op (PERFORMANCE.md "Profiling recipe that worked")."""
+device-time by op. The trace is written under <repo>/.traces/slide (or
+AB_TRACE_DIR)."""
 
 import glob
 import gzip
 import json
 import os
+import shutil
 import sys
 from collections import defaultdict
 
@@ -14,11 +16,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", os.path.expanduser("~/.cache/pprx-xla"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from pprx.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from pprx.config import PprConfig, StreamConfig
-from pprx.eval.sync import hard_sync
 from pprx.graph.fast_stream import FastStreamDriver
 from pprx.graph.io import synthetic_powerlaw_stream
 
@@ -26,7 +28,6 @@ N = int(os.environ.get("AB_N", 200_000))
 W = int(os.environ.get("AB_W", 2_000_000))
 B = int(os.environ.get("AB_B", 160_000))
 S = int(os.environ.get("AB_S", 128))
-SEGSUM = os.environ.get("AB_SEGSUM", "1") == "1"
 RE = int(os.environ.get("AB_RE", 2))
 PROF_STEPS = 2
 
@@ -35,18 +36,20 @@ scfg = StreamConfig(window=W, slide=B)
 warm = RE + 2
 src, dst, _ = synthetic_powerlaw_stream(N, W + (warm + PROF_STEPS + 3) * B, seed=7)
 drv = FastStreamDriver(src, dst, N, list(range(S)), cfg, scfg, mode=0,
-                       segsum=SEGSUM, rebuild_every=RE)
+                       rebuild_every=RE)
 drv.seed()
 for _ in drv.run(warm):
     pass
-hard_sync(drv.state.r)
+jax.block_until_ready(drv.state.r)
 
-outdir = "/tmp/pprx_trace"
-os.system(f"rm -rf {outdir}")
-with jax.profiler.trace(outdir):
+outdir = os.environ.get("AB_TRACE_DIR") or os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".traces", "slide"
+)
+shutil.rmtree(outdir, ignore_errors=True)
+with jax.profiler.trace(outdir, create_perfetto_trace=True):
     for _ in drv.run(PROF_STEPS):
         pass
-    hard_sync(drv.state.r)
+    jax.block_until_ready(drv.state.r)
 
 # aggregate traceEvents by op name
 files = glob.glob(f"{outdir}/**/*.trace.json.gz", recursive=True)

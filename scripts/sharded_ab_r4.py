@@ -3,8 +3,7 @@ the fresh-ring size lever (the sharded driver's default fring=8*b makes
 every dense-flush round sweep a 1.28M-lane mostly-dead fresh view, while
 the single-chip bench runs at fring=2*b) before the code fixes land.
 
-Interleaved same-process runs, best-of-2 per variant (transport protocol,
-PERFORMANCE.md round 3).
+Interleaved same-process runs, best-of-2 per variant.
 """
 
 import os
@@ -14,8 +13,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", os.path.expanduser("~/.cache/pprx-xla"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from pprx.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from pprx.bench.run import run_config
 

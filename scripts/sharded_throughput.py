@@ -1,9 +1,8 @@
-"""Record the sharded engines' throughput (VERDICT round-2 item 1).
+"""Record the sharded engines' throughput.
 
-Mode A (real chip, default): config-5 shapes = the single-chip headline
+Mode A (one GPU, default): config-5 shapes = the single-chip headline
 shapes, mesh 1x1 — isolates the sharding machinery's tax with no
-collectives hardware. Two runs per engine, best reported (transport noise
-protocol, PERFORMANCE.md round 3).
+collectives. Two runs per engine, best reported.
 
 Mode B (SHARDED_SCALING=1, CPU): relative strong-scaling curve on the
 virtual mesh, rows in {1, 2, 4, 8} at fixed problem size. Absolute CPU
@@ -19,8 +18,9 @@ SCALING = os.environ.get("SHARDED_SCALING", "0") == "1"
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", os.path.expanduser("~/.cache/pprx-xla"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from pprx.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 if SCALING:
     jax.config.update("jax_platforms", "cpu")
 

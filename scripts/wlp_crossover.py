@@ -19,7 +19,7 @@ crossover on the virtual CPU mesh:
    only admissible one. Absolute CPU throughput is not chip throughput —
    the datum is that wlp completes the identical workload inside a budget
    wl cannot fit, at a comparable (same-order) rate.
-4. Print the projected real-HBM crossover at S=128 on a 16 GB v5e chip.
+4. Print the projected device-memory crossover at S=128 on an 80 GB H100.
 
 Usage: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
            python scripts/wlp_crossover.py
@@ -43,7 +43,6 @@ from pprx.config import PprConfig, StreamConfig
 from pprx.dist.mesh import make_row_mesh
 from pprx.dist.stream import ShardedStreamDriver
 from pprx.eval.membound import max_float_temp_size
-from pprx.eval.sync import hard_sync
 from pprx.graph.io import synthetic_powerlaw_stream
 
 # shapes: N >> W/K so the classic engine's [n_pad, S] carry/psum term
@@ -90,12 +89,12 @@ def probe(engine):
     drv.seed()
     for _ in drv.run(2):  # warm
         pass
-    hard_sync(drv.p)
+    jax.block_until_ready(drv.p)
     t0 = time.perf_counter()
     k = 0
     for st in drv.run(STEPS):
         k += 1
-    hard_sync(drv.p)
+    jax.block_until_ready(drv.p)
     wall = time.perf_counter() - t0
     ups = 2 * B * k / wall
     print(f"[{engine}] {ups:,.0f} updates/s on the CPU mesh "
@@ -107,13 +106,14 @@ def probe(engine):
 rows = [probe("wl"), probe("wlp")]
 full_state_mb = (N + K) * S * 4 / 1e6  # n_pad ~ N
 
-# real-HBM projection at S=128 on a 16 GB v5e (leave 4 GB for program +
-# window buffers): the wl push program keeps ~2 [n_pad, S] f32 buffers
-# live per device (carry outbox + the psum_scatter operand), so its
-# ceiling is N* ~ 12 GB / (2 * 128 * 4 B); wlp's per-device floats are
-# O(n_local * S + L * S) and shrink 1/K, so the same chip runs K times
+# device-memory projection at S=128 on an 80 GB H100, of which a JAX
+# process takes 60 GB by default (leave 8 GB for program + window
+# buffers): the wl push program keeps ~2 [n_pad, S] f32 buffers live per
+# device (carry outbox + the psum_scatter operand), so its ceiling is
+# N* ~ 52 GB / (2 * 128 * 4 B); wlp's per-device floats are
+# O(n_local * S + L * S) and shrink 1/K, so the same card runs K times
 # further.
-n_star = 12e9 / (2 * 128 * 4)  # two live [n_pad, S] f32 buffers
+n_star = 52e9 / (2 * 128 * 4)  # two live [n_pad, S] f32 buffers
 out = {
     "mode": "wlp_crossover",
     "budget_mb": BUDGET_MB,
@@ -121,13 +121,13 @@ out = {
     "full_state_mb": round(full_state_mb, 1),
     "rows": rows,
     "hbm_crossover_projection": {
-        "assumed_hbm_budget_gb": 12,
+        "assumed_device_budget_gb": 52,
         "s": 128,
         "wl_live_npad_buffers": 2,
         "n_star_wl_ceiling": int(n_star),
         "note": "beyond N* the classic wl engine cannot allocate its "
                 "[n_pad, S] carry/reduce-scatter buffers at ANY K; wlp's "
-                "per-device floats shrink 1/K, so N scales with the pod",
+                "per-device floats shrink 1/K, so N scales with the cards",
     },
 }
 print(json.dumps(out), flush=True)

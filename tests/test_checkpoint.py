@@ -212,13 +212,49 @@ def test_checkpoint_fast_backcompat_no_fd(tmp_path):
     save_checkpoint(ckpt, a)
     # strip the fd arrays to simulate the old format
     z = dict(np.load(ckpt))
-    for k in ("kg_fd_gat", "kg_fd_sca", "kg_fd_toff"):
+    for k in ("kg_fd_gat", "kg_fd_sca"):
         del z[k]
     np.savez_compressed(ckpt, **z)
     for _ in a.run(4):
         pass
 
     b = load_checkpoint(ckpt, src, dst)
+    for _ in b.run(4):
+        pass
+    np.testing.assert_array_equal(np.asarray(a.state.p), np.asarray(b.state.p))
+    np.testing.assert_array_equal(np.asarray(a.state.r), np.asarray(b.state.r))
+
+
+def test_checkpoint_fast_loads_padded_views_with_tile_offsets(tmp_path):
+    """Fast-driver checkpoints from before the delivery views were unpadded
+    carry a phantom tail on d_*/fd_* and per-tile offset arrays (d_toff,
+    fd_toff): the loader trims the tail, ignores the offsets, and resumes
+    bit-identically."""
+    from pprx.graph.fast_stream import FastStreamDriver
+
+    n, total = 30, 500
+    src, dst, _ = synthetic_powerlaw_stream(n, total, seed=8)
+    scfg = StreamConfig(window=200, slide=20)
+    a = FastStreamDriver(
+        src, dst, n, [0, 5], CFG, scfg, dtype=jnp.float64, rebuild_every=3
+    )
+    a.seed()
+    for _ in a.run(4):
+        pass
+    ckpt = str(tmp_path / "ckpad.npz")
+    save_checkpoint(ckpt, a)
+    z = dict(np.load(ckpt))
+    for k in ("kg_d_gat", "kg_d_sca", "kg_fd_gat", "kg_fd_sca"):
+        z[k] = np.concatenate([z[k], np.full(48, n, np.int32)])
+    z["kg_d_toff"] = np.zeros(2, np.int32)
+    z["kg_fd_toff"] = np.zeros(2, np.int32)
+    np.savez_compressed(ckpt, **z)
+    for _ in a.run(4):
+        pass
+
+    b = load_checkpoint(ckpt, src, dst)
+    assert b.graph.d_gat.shape == a.graph.d_gat.shape
+    assert b.graph.fd_gat.shape == a.graph.fd_gat.shape
     for _ in b.run(4):
         pass
     np.testing.assert_array_equal(np.asarray(a.state.p), np.asarray(b.state.p))

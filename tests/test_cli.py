@@ -126,7 +126,7 @@ def test_retrieve_from_checkpoint(graph_npz, tmp_path, capsys):
     ])
     out = run_cli(capsys, [
         "retrieve", graph_npz, "--from-checkpoint", ck, "--k", "5",
-        "--refine-eps", "1e-7", "--approx",
+        "--refine-eps", "1e-7",
     ])
     assert out["k"] == 5 and out["batch"] == 3
     assert out["refine_eps"] == 1e-7 and out["refine_rounds"] > 0

@@ -26,10 +26,10 @@ def test_sharded_topk_matches_single_device(rows, srcs):
     p[10, :] = p[20, :] = p[30, :] = 0.999
     pg = jax.device_put(jnp.asarray(p), NamedSharding(mesh, P("rows", "srcs")))
 
-    f = make_sharded_topk(mesh, n, n_local, k, exact=True)
+    f = make_sharded_topk(mesh, n, n_local, k)
     sc, ids = f(pg)
     # single-device head wants the [N+1, S] layout with a phantom last row
-    ref_sc, ref_ids = topk_candidates(jnp.asarray(p[: n + 1]), k=k, exact=True)
+    ref_sc, ref_ids = topk_candidates(jnp.asarray(p[: n + 1]), k=k)
     np.testing.assert_allclose(np.asarray(sc), np.asarray(ref_sc))
     np.testing.assert_array_equal(np.asarray(ids), np.asarray(ref_ids))
 
@@ -48,22 +48,3 @@ def test_sharded_topk_never_emits_padding_rows():
     sc, ids = f(pg)
     assert np.asarray(ids).max() < n
     assert np.asarray(sc).max() < 1.0
-
-
-def test_sharded_topk_approx_recall():
-    rng = np.random.default_rng(9)
-    n, s, k = 4000, 4, 50
-    mesh = make_row_mesh(4, 2)
-    n_local = -(-(n + 1) // 4)
-    n_pad = n_local * 4
-    p = np.zeros((n_pad, s))
-    p[:n] = rng.random((n, s))
-    pg = jax.device_put(jnp.asarray(p), NamedSharding(mesh, P("rows", "srcs")))
-    f = make_sharded_topk(mesh, n, n_local, k, exact=False)
-    sc, ids = f(pg)
-    ref_sc, ref_ids = topk_candidates(jnp.asarray(p[: n + 1]), k=k, exact=True)
-    recalls = [
-        len(set(np.asarray(ids)[q]) & set(np.asarray(ref_ids)[q])) / k
-        for q in range(s)
-    ]
-    assert min(recalls) > 0.6, recalls  # binned head, CPU emulation is coarse

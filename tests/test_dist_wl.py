@@ -233,29 +233,6 @@ def test_wl_push_sorted_bucket_path(monkeypatch, mode):
     np.testing.assert_allclose(np.asarray(r)[:n], r_ref, atol=1e-12)
 
 
-def test_wl_push_bf16_delivery_close():
-    """bf16 a2a/dense-delivery (opt-in): converges and tracks the exact
-    engine within the documented 2^-9-relative delivery rounding."""
-    rng = np.random.default_rng(2)
-    n, m = 50, 300
-    src, dst = random_multigraph(rng, n, m)
-    queries = [0, 7, 13, 25]
-    mesh = make_row_mesh(4, 1)
-    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=5000)
-    eng = ShardedWlEngine(
-        mesh, n, len(queries), ecap=m, bcap=8, cfg=cfg, mode=FORWARD,
-        dtype=jnp.float32, ccap=64, bf16d=True,
-    )
-    p, r = eng.init_state(queries)
-    deg, egl, eog, eva, _, snap = eng.device_graph_wl(src, dst)
-    p, r, rounds, *_ = eng.push_wl(p, r, deg, snap)
-    assert int(rounds) < cfg.max_rounds
-    p_ref, _, _ = reference(src, dst, n, queries, FORWARD)
-    np.testing.assert_allclose(np.asarray(p)[:n], p_ref, atol=1e-2)
-    col = np.asarray(p)[:n].sum(axis=0) + np.asarray(r)[:n].sum(axis=0)
-    np.testing.assert_allclose(col, 1.0, atol=1e-2)
-
-
 @pytest.mark.parametrize("mode", [FORWARD, REVERSE])
 def test_wl_push_k1_explicit_ccap_no_mass_loss(mode):
     """K=1 with an explicit ccap that clamps the per-tier quotas below the
@@ -317,19 +294,15 @@ def test_wl_slide_k1_explicit_ccap_stream_parity():
     np.testing.assert_allclose(col, 1.0, atol=1e-9)
 
 
-@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
-@pytest.mark.parametrize("rows", [1])
-def test_wl_slide_segsum_lane_padded(mode, rows):
-    """The Pallas segment-sum delivery path with S % 128 != 0 (round 5:
-    operands lane-pad before the edge gather — Mosaic needs 128-aligned
-    DMA). Interpret mode on CPU, K=1 only: the engine hard-gates the
-    lane-padded kernel off at K>1 (nondeterministic interpret-mode
-    garbage this path surfaced is recorded in PERFORMANCE.md round 5; no
-    multi-chip hardware to validate the compiled path). The kernel's
-    different summation ORDER can flip |r| > eps knife-edges vs the
-    scatter engine, so the assertion is the engine's actual contract —
-    exact-PPR accuracy on the final window + exact mass conservation —
-    not schedule parity."""
+@pytest.mark.parametrize(
+    "mode,rows", [(FORWARD, 1), (FORWARD, 4), (REVERSE, 1)]
+)
+def test_wl_slide_narrow_batch_exact_ppr(mode, rows):
+    """A narrow query batch (S=4) through the sharded slide at K=1 and K>1:
+    the local-first delivery views must deliver local mass straight into r
+    and remote mass through the reduce-scatter. Checked against exact PPR
+    on the final window (+ exact mass conservation in forward mode).
+    Reverse mode at K>1 on this stream is a known open defect (ROADMAP)."""
     from pprx.config import StreamConfig
     from pprx.dist.stream import ShardedStreamDriver
     from pprx.ref.exact import exact_ppr, exact_ppr_matrix
@@ -344,15 +317,6 @@ def test_wl_slide_segsum_lane_padded(mode, rows):
         src, dst, n, queries, CFG, scfg, mesh, mode=mode,
         dtype=jnp.float64, engine="wl", ccap=64, fring=40,
     )
-    drv.eng  # built without segsum; rebuild with it forced on
-    from pprx.dist.wl import ShardedWlEngine
-    drv.eng = ShardedWlEngine(
-        mesh, n, len(queries), ecap=drv.eng.ecap, bcap=scfg.slide, cfg=CFG,
-        mode=mode, dtype=jnp.float64, ccap=64, fring=40, segsum=True,
-    )
-    drv.snap = drv.eng.rebuild(drv.egl, drv.eog, drv.eva)
-    if mode == FORWARD:
-        drv.ring = drv._device_ring()
     drv.seed()
     for _ in drv.run(4):
         pass
@@ -372,19 +336,3 @@ def test_wl_slide_segsum_lane_padded(mode, rows):
         for qi, q in enumerate(queries):
             # reverse state approximates the contribution vector pi_.(q)
             assert np.abs(p[:n, qi] - M[:, q]).max() < 50 * CFG.eps
-
-
-def test_wl_segsum_lane_pad_refused_at_k_gt_1():
-    """The K>1 + sub-128-width kernel guard is hard (overrides explicit
-    requests) — see the round-5 note in ShardedWlEngine.__init__."""
-    mesh = make_row_mesh(2, 1)
-    eng = ShardedWlEngine(
-        mesh, 30, 4, ecap=100, bcap=8, cfg=CFG, mode=FORWARD,
-        dtype=jnp.float64, ccap=64, segsum=True,
-    )
-    assert not eng.segsum
-    eng1 = ShardedWlEngine(
-        make_row_mesh(1, 1), 30, 4, ecap=100, bcap=8, cfg=CFG, mode=FORWARD,
-        dtype=jnp.float64, ccap=64, segsum=True,
-    )
-    assert eng1.segsum

@@ -148,3 +148,21 @@ def test_dynamic_equals_recompute():
     src2, dst2 = g.coo()
     pi = exact_ppr(src2, dst2, n, 0, ALPHA)
     assert np.abs(pi - st.p).max() < eps * n * 10
+
+
+def test_exact_oracles_agree_with_the_dense_solve():
+    """The power-iteration oracles used at sizes the dense solve cannot
+    reach: batched PPR rows and reverse contribution columns of M."""
+    from pprx.ref.exact import exact_contribution, exact_ppr_many
+
+    rng = np.random.default_rng(21)
+    n = 40
+    src, dst = random_multigraph(rng, n, 160)
+    src = np.concatenate([src, [5]])  # vertex 39 may dangle; keep a hub
+    dst = np.concatenate([dst, [6]])
+    M = exact_ppr_matrix(src, dst, n, ALPHA)
+    rows = exact_ppr_many(src, dst, n, [0, 7, 33], ALPHA, tol=1e-14)
+    np.testing.assert_allclose(rows, M[[0, 7, 33]], atol=1e-12)
+    for t in (2, 19):
+        col = exact_contribution(src, dst, n, t, ALPHA, tol=1e-14)
+        np.testing.assert_allclose(col, M[:, t], atol=1e-12)

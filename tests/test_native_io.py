@@ -9,9 +9,11 @@ import pytest
 from pprx.graph import native_io
 from pprx.graph.io import load_edge_list
 
-pytestmark = pytest.mark.skipif(
-    not native_io.AVAILABLE, reason="native library not built (make -C native)"
-)
+
+@pytest.fixture
+def native():
+    if not native_io.available():
+        pytest.skip("native library could not be built (make -C native)")
 
 
 def write(tmp_path, text):
@@ -32,7 +34,7 @@ CASES = [
 
 
 @pytest.mark.parametrize("text", CASES)
-def test_native_matches_python(tmp_path, text):
+def test_native_matches_python(native, tmp_path, text):
     path = write(tmp_path, text)
     ns, nd, nn = load_edge_list(path, use_native=True)
     ps, pd, pn = load_edge_list(path, use_native=False)
@@ -41,7 +43,7 @@ def test_native_matches_python(tmp_path, text):
     assert nn == pn
 
 
-def test_native_large_random_roundtrip(tmp_path):
+def test_native_large_random_roundtrip(native, tmp_path):
     rng = np.random.default_rng(0)
     m = 50_000
     src = rng.integers(0, 5000, m)
@@ -56,7 +58,7 @@ def test_native_large_random_roundtrip(tmp_path):
     assert nn == pn
 
 
-def test_native_missing_file():
+def test_native_missing_file(native):
     with pytest.raises(RuntimeError, match="native edge parse failed"):
         native_io.parse_edgelist_raw("/nonexistent/file.txt")
 
@@ -79,3 +81,46 @@ def test_renumber_scatter_path_matches_unique_path():
         np.testing.assert_array_equal(a[0], b[0])
         np.testing.assert_array_equal(a[1], b[1])
         assert a[2] == b[2]
+
+
+def _fresh_loader(monkeypatch, native_dir):
+    monkeypatch.setattr(native_io, "_NATIVE_DIR", str(native_dir))
+    monkeypatch.setattr(
+        native_io, "_LIB_PATH", str(native_dir / "libpprx_edgeio.so")
+    )
+    monkeypatch.setattr(native_io, "_lib", None)
+    monkeypatch.setattr(native_io, "_loaded", False)
+
+
+def test_native_builds_from_source_on_first_use(tmp_path, monkeypatch):
+    """The library is not kept in git: the first use builds it from
+    native/edgeio.cpp with make, then loads it."""
+    import shutil
+
+    src_dir = tmp_path / "native"
+    src_dir.mkdir()
+    for name in ("Makefile", "edgeio.cpp"):
+        shutil.copy(f"{native_io._NATIVE_DIR}/{name}", src_dir / name)
+    monkeypatch.delenv("PPRX_NO_NATIVE", raising=False)
+    _fresh_loader(monkeypatch, src_dir)
+    if shutil.which("make") is None or shutil.which("g++") is None:
+        pytest.skip("no C++ toolchain on this machine")
+    assert native_io.available()
+    assert (src_dir / "libpprx_edgeio.so").exists()
+    path = write(tmp_path, "0 1\n1 2\n")
+    src, dst, ts, has_ts = native_io.parse_edgelist_raw(path)
+    np.testing.assert_array_equal(src, [0, 1])
+    np.testing.assert_array_equal(dst, [1, 2])
+
+
+def test_native_opt_out_falls_back_to_python(tmp_path, monkeypatch):
+    """PPRX_NO_NATIVE=1: no build, the auto-selected parser is pure Python
+    and gives the same result."""
+    _fresh_loader(monkeypatch, tmp_path / "absent")
+    monkeypatch.setenv("PPRX_NO_NATIVE", "1")
+    assert not native_io.available()
+    path = write(tmp_path, "3 4\n4 5\n")
+    s, d, n = load_edge_list(path)
+    assert n == 3 and s.tolist() == [0, 1] and d.tolist() == [1, 2]
+    with pytest.raises(RuntimeError, match="not available"):
+        native_io.parse_edgelist_raw(path)

@@ -59,20 +59,6 @@ def test_recall_at_k_ties_rigorous():
     assert recall_at_k_ties(np.array([0, 4]), exact, 2) == 0.5
 
 
-def test_topk_recall_target_plumbing():
-    """recall_target reaches approx_max_k (shape/validity smoke; the op is
-    exact at these tiny shapes on the CPU backend)."""
-    from pprx.retrieve.topk import topk_candidates
-
-    rng = np.random.default_rng(3)
-    p = jnp.asarray(rng.random((600, 4)).astype(np.float32))
-    for rt in (0.9, 0.97):
-        sc, ids = topk_candidates(p, k=10, exact=False, recall_target=rt)
-        assert sc.shape == (4, 10) and ids.shape == (4, 10)
-        got = np.take_along_axis(np.asarray(p[:-1].T), np.asarray(ids), axis=1)
-        np.testing.assert_array_equal(got, np.asarray(sc))
-
-
 def test_two_stage_exact_topk_matches_single_sort():
     """The chunked exact path (pads N to a chunk multiple, per-chunk top-k,
     merge) must equal lax.top_k of the full rows — including duplicate
@@ -86,7 +72,7 @@ def test_two_stage_exact_topk_matches_single_sort():
     p[50:60, :] = 0.5  # duplicate scores across the chunk boundary region
     p = jnp.asarray(p)
     sc_ref, _ = jax.lax.top_k(p[:-1].T, k)
-    sc2, ids2 = topk_candidates(p, k=k, exact=True, chunk=64)  # 1000 % 64 != 0
+    sc2, ids2 = topk_candidates(p, k=k, chunk=64)  # 1000 % 64 != 0
     np.testing.assert_array_equal(np.asarray(sc2), np.asarray(sc_ref))
     # returned ids must actually hold the returned scores
     got = np.take_along_axis(np.asarray(p[:-1].T), np.asarray(ids2), axis=1)

@@ -26,7 +26,6 @@ def reference(src, dst, n, queries, mode):
     return np.asarray(st.p), np.asarray(st.r), int(stats.rounds)
 
 
-@pytest.mark.parametrize("segsum", [False, True])
 @pytest.mark.parametrize("mode", [FORWARD, REVERSE])
 @pytest.mark.parametrize(
     "tiers",
@@ -37,13 +36,11 @@ def reference(src, dst, n, queries, mode):
         ((4, 512, 16),),                  # emission overflow -> scan reseeds
     ],
 )
-def test_wl2_convergence_matches_dense(mode, tiers, segsum):
-    if segsum and tiers != ((16, 16, 4),):
-        pytest.skip("segsum scan-round parity: one tier config suffices")
-    _wl2_convergence_case(mode, tiers, segsum)
+def test_wl2_convergence_matches_dense(mode, tiers):
+    _wl2_convergence_case(mode, tiers)
 
 
-def _wl2_convergence_case(mode, tiers, segsum):
+def _wl2_convergence_case(mode, tiers):
     rng = np.random.default_rng(7)
     n, m = 40, 200
     src, dst = random_multigraph(rng, n, m)
@@ -55,7 +52,6 @@ def _wl2_convergence_case(mode, tiers, segsum):
     cand0 = jnp.asarray(np.concatenate([q, np.full(8 - q.size, n, np.int32)]))
     st, stats = push_to_convergence_wl2(
         st, kg, CFG, cand0, jnp.asarray(q.size, jnp.int32), True, tiers,
-        segsum=segsum,
     )
     p_ref, r_ref, rounds_ref = reference(src, dst, n, queries, mode)
     np.testing.assert_allclose(np.asarray(st.p), p_ref, atol=1e-13)
@@ -64,9 +60,8 @@ def _wl2_convergence_case(mode, tiers, segsum):
     assert int(stats.wl_rounds) <= int(stats.rounds)
 
 
-@pytest.mark.parametrize("segsum", [False, True])
 @pytest.mark.parametrize("mode", [FORWARD, REVERSE])
-def test_fast_stream_matches_dense_stream(mode, segsum):
+def test_fast_stream_matches_dense_stream(mode):
     n, total = 35, 500
     src, dst, _ = synthetic_powerlaw_stream(n, total, seed=11)
     scfg = StreamConfig(window=250, slide=25)
@@ -79,7 +74,7 @@ def test_fast_stream_matches_dense_stream(mode, segsum):
     # rebuild_every=3 forces multiple snapshot rebuilds (kill-map refreshes)
     b = FastStreamDriver(
         src, dst, n, queries, CFG, scfg, mode=mode, dtype=jnp.float64,
-        rebuild_every=3, e_top=64, n_tiers=3, segsum=segsum,
+        rebuild_every=3, e_top=64, n_tiers=3,
     )
     b.seed()
     rb = [int(s.rounds) for s in b.run(10)]
@@ -125,45 +120,58 @@ def test_fast_stream_determinism():
     np.testing.assert_array_equal(r1, r2)
 
 
-@pytest.mark.parametrize("segsum", [False, True])
-def test_wl2_sorted_delivery_parity(monkeypatch, segsum):
-    """Force every compact round onto the sorted-delivery path (and the
-    per-round segment-sum when segsum=True) by dropping SORT_DELIVER_MIN:
-    the sorted/kernel delivery must be exact vs the dense engine."""
+def test_wl2_sorted_delivery_parity(monkeypatch):
+    """Force every compact round onto the sorted-delivery path by dropping
+    SORT_DELIVER_MIN: the sorted delivery must be exact vs the dense
+    engine."""
     import pprx.engine.wl2 as wl2mod
 
     monkeypatch.setattr(wl2mod, "SORT_DELIVER_MIN", 1)
-    _wl2_convergence_case(FORWARD, ((64, 512, 16),), segsum)
-    _wl2_convergence_case(REVERSE, ((8, 32, 4), (64, 512, 16)), segsum)
+    _wl2_convergence_case(FORWARD, ((64, 512, 16),))
+    _wl2_convergence_case(REVERSE, ((8, 32, 4), (64, 512, 16)))
 
 
-def test_fast_stream_bf16_delivery_close():
-    """bf16 dense-round delivery (opt-in): residual removal stays exact, so
-    the stream converges, conserves mass, and tracks the f32 engine within
-    bf16 rounding of the delivered increments."""
-    n, total = 60, 900
-    src, dst, _ = synthetic_powerlaw_stream(n, total, seed=4)
-    scfg = StreamConfig(window=600, slide=60)
-    cfg = PprConfig(alpha=0.15, eps=1e-6, max_rounds=5000)
+@pytest.mark.parametrize("mode", [FORWARD, REVERSE])
+@pytest.mark.parametrize("s", [1, 8, 16, 128])
+def test_dense_round_sorted_matches_push_round(mode, s):
+    """One delivery-sorted dense round (the window-scale XLA sorted scatter
+    plus the fresh-ring delivery, after kills) equals one COO round of the
+    dense engine on the same live edge set, at narrow and wide query
+    batches."""
+    from pprx.engine.push import push_round
+    from pprx.engine.wl2 import dense_round_sorted, refresh_fresh_csr
 
-    def run(bf16d):
-        drv = FastStreamDriver(
-            src, dst, n, [0, 5, 11], cfg, scfg, dtype=jnp.float32,
-            rebuild_every=3, segsum=True, bf16d=bf16d,
-        )
-        drv.seed()
-        for _ in drv.run(4):
-            pass
-        return np.asarray(drv.state.p), np.asarray(drv.state.r)
-
-    p32, r32 = run(False)
-    p16, r16 = run(True)
-    # delivered mass is rounded to bf16, so conservation holds only to
-    # ~2^-9 of the total moved mass (the documented error model)
-    np.testing.assert_allclose(
-        p16[:n].sum(axis=0) + r16[:n].sum(axis=0), 1.0, atol=1e-2
+    rng = np.random.default_rng(3 + s)
+    n, m, fring = 40, 240, 24
+    src, dst = random_multigraph(rng, n, m)
+    window = WindowGraph.from_coo(src, dst, n)
+    kg = build_kill_graph(window, mode, fring=fring)
+    # kill 12 snapshot edges and refill their slots as fresh edges, the way
+    # a slide does, so both delivery views carry live mass
+    slots = rng.choice(m, size=12, replace=False).astype(np.int32)
+    new_src, new_dst = random_multigraph(rng, n, 12)
+    new_src, new_dst = new_src.astype(np.int32), new_dst.astype(np.int32)
+    src2, dst2 = src.copy(), dst.copy()
+    src2[slots], dst2[slots] = new_src, new_dst
+    w2 = WindowGraph.from_coo(src2, dst2, n)
+    gat = new_src if mode == FORWARD else new_dst
+    sca = new_dst if mode == FORWARD else new_src
+    kg = kg.replace(
+        window=w2,
+        nbr=kg.nbr.at[kg.snap_pos[slots]].set(n),
+        d_gat=kg.d_gat.at[kg.d_pos[slots]].set(n),
+        fr_gat=kg.fr_gat.at[:12].set(gat),
+        fr_sca=kg.fr_sca.at[:12].set(sca),
+        f_len=kg.f_len.at[gat].add(1),
     )
-    np.testing.assert_allclose(p16, p32, atol=1e-2)
-    # and it is a real approximation, not a broken path: the bulk of the
-    # mass landed in the right places
-    assert np.abs(p16 - p32).max() < 0.02
+    kg = refresh_fresh_csr(kg)
+    queries = rng.integers(0, n, size=s).tolist()
+    st = init_state(n, queries, mode=mode, dtype=jnp.float64)
+    # a few dense rounds first, so r is spread over many rows
+    for _ in range(2):
+        st, _, _ = push_round(st, w2, CFG)
+    got, na, _ = dense_round_sorted(st, kg, CFG)
+    want, na_ref, _ = push_round(st, w2, CFG)
+    np.testing.assert_allclose(np.asarray(got.p), np.asarray(want.p), atol=1e-14)
+    np.testing.assert_allclose(np.asarray(got.r), np.asarray(want.r), atol=1e-14)
+    assert float(na) == float(na_ref) > 0

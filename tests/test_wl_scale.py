@@ -1,8 +1,7 @@
-"""wl/wlp engines at K=16 shards (VERDICT round-2 item 8): the conftest
-mesh is 8 devices, so a subprocess brings up a 16-device CPU backend and
-asserts push parity for both sharded engines. K=32 runs via the same
-worker when PPRX_TEST_K32=1 (slow; exercised manually for the
-PERFORMANCE.md round-cost-vs-K note)."""
+"""wl/wlp engines at K=16 shards: the conftest mesh is 8 devices, so a
+subprocess brings up a 16-device CPU backend and asserts push parity for
+both sharded engines. K=32 runs via the same worker when PPRX_TEST_K32=1
+(slow; exercised manually)."""
 
 import os
 import subprocess
